@@ -3,10 +3,13 @@
 
 Phases, each fatal on failure:
   1. build   — compile every hand-written kernel from clearconverse_tpu_torch/
-               csrc with nvcc (all at once) and print the build seconds;
+               csrc with nvcc (all at once); print the build seconds, ptxas's
+               registers and spills, and each library's count of
+               tensor-core instructions (HGMMA, HMMA) in its SASS;
   2. kernels — hold each kernel against its plain PyTorch version on the card
-               at the main path's shapes, and time kernel, plain version and,
-               where one exists, the single PyTorch library call;
+               at the main path's shapes (K2 bf16 also at the engine's batch
+               of 32), and time kernel, plain version and, where one exists,
+               the single PyTorch library call;
   3. slice   — a 2-layer model at small.en's full width, f32: transcribe_batch
                at t=0 on the card (kernels) and on the CPU (plain versions);
                identical tokens and texts, encoder output and prefill logits
@@ -31,6 +34,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -89,18 +93,34 @@ def allclose(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> bool
 
 # ------------------------------------------------------------------ phases
 
+def sass_counts(lib_path) -> dict:
+    """Tensor-core instructions in a built library's SASS: HGMMA (wgmma)
+    and HMMA (mma.sync), by cuobjdump beside nvcc; {} without cuobjdump."""
+    from clearconverse_tpu_torch.ops import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+
+
 def phase_build():
     from clearconverse_tpu_torch.ops import build
     t0 = time.perf_counter()
     logs = build.build()
     secs = time.perf_counter() - t0
+    sass = {}
     for name, (s, text) in logs.items():
         log(f"[build] {name}: {s:.1f} s")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma")):
                 log(f"[build]   {line.strip()}")
+        sass[name] = sass_counts(build.library_path(name))
+        log(f"[build]   SASS tensor-core instructions: "
+            f"{sass[name] or 'cuobjdump not found'}")
     log(f"[build] all kernels in {secs:.1f} s")
-    return secs
+    return secs, sass
 
 
 def phase_kernels(gen: torch.Generator):
@@ -138,13 +158,16 @@ def phase_kernels(gen: torch.Generator):
         "plain_ms": time_ms(lambda: k1.mel_power_plain(audio)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
-    # K2 at B=N_SEG, T=1500, D=768, H=12: bf16 (the main path's dtype) and
-    # f32. q, k ~ N(0, 1) give logits of unit spread; v ~ 0.3 N(0, 1) as in
+    # K2 at T=1500, D=768, H=12: bf16 (the main path's dtype) at B=N_SEG and
+    # at the engine's transcription batch of 32, and f32 at B=N_SEG. q, k ~
+    # N(0, 1) give logits of unit spread; v ~ 0.3 N(0, 1) as in
     # tests/test_pallas.py, so outputs stay below 0.25, where one bf16
     # rounding step of the output (both sides round it) is under 1e-3.
-    B, T, D, H = N_SEG, 1500, 768, 12
+    T, D, H = 1500, 768, 12
     extra = {}
-    for dtype, atol in (("float32", 1e-4), ("bfloat16", 2e-3)):
+    k2_rows = {}
+    for B, dtype, atol in ((N_SEG, "float32", 1e-4), (N_SEG, "bfloat16", 2e-3),
+                           (32, "bfloat16", 2e-3)):
         q, k, v = (torch.randn((B, T, D), generator=gen, device="cuda")
                    .mul_(scale).to(getattr(torch, dtype))
                    for scale in (1.0, 1.0, 0.3))
@@ -152,34 +175,43 @@ def phase_kernels(gen: torch.Generator):
         ref = k2.encoder_attention_plain(q, k, v, H)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
+        del out, ref
         log(f"[kernels] K2 encoder_attention {(B, T, D)} {dtype}: max err "
             f"{err:.3g} (atol {atol}) -> {'ok' if err <= atol else 'FAIL'}")
         if not err <= atol:
             raise SystemExit("K2 disagrees with its plain version")
-        extra[dtype] = (q, k, v, err)
-    q, k, v, err = extra["bfloat16"]
-    qh, kh, vh = (x.view(B, T, H, 64).transpose(1, 2).contiguous()
-                  for x in (q, k, v))
-    flops = 4 * B * H * T * T * 64
-    b_ms, b_by = bound_ms(4 * q.numel() * 2, flops, "bfloat16")
-    f32_ms = time_ms(lambda: k2.encoder_attention(*extra["float32"][:3], H),
-                     iters=3)
-    rows.append({
-        "name": "encoder_attention", "route": "cuda",
-        "source": "clearconverse_tpu_torch/csrc/encoder_attention.cu",
-        "replaces": "clearconverse_tpu/ops/pallas/encoder_attention.py:61",
-        "launches": 0, "max_abs_err": err,
-        "ms": time_ms(lambda: k2.encoder_attention(q, k, v, H)),
-        "plain_ms": time_ms(lambda: k2.encoder_attention_plain(q, k, v, H)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))})
-    for r in rows:
-        log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain "
+        if dtype == "float32":
+            extra["encoder_attention_f32_err"] = err
+            extra["encoder_attention_f32_ms"] = time_ms(
+                lambda: k2.encoder_attention(q, k, v, H), iters=3)
+            continue
+        qh, kh, vh = (x.view(B, T, H, 64).transpose(1, 2).contiguous()
+                      for x in (q, k, v))
+        b_ms, b_by = bound_ms(4 * q.numel() * 2, 4 * B * H * T * T * 64,
+                              "bfloat16")
+        k2_rows[B] = {
+            "name": "encoder_attention", "route": "cuda",
+            "source": "clearconverse_tpu_torch/csrc/encoder_attention.cu",
+            "replaces": "clearconverse_tpu/ops/pallas/encoder_attention.py:61",
+            "launches": 0, "max_abs_err": err,
+            "ms": time_ms(lambda: k2.encoder_attention(q, k, v, H)),
+            "plain_ms": time_ms(lambda: k2.encoder_attention_plain(q, k, v, H),
+                                iters=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh))}
+        del q, k, v, qh, kh, vh
+    rows.append(k2_rows[N_SEG])
+    extra["encoder_attention_b32"] = {key: val for key, val in k2_rows[32].items()
+                                      if key != "launches"}
+    for label, r in [("", x) for x in rows] + [(" (B=32)", k2_rows[32])]:
+        log(f"[kernels] {r['name']}{label}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-    log(f"[kernels] encoder_attention f32 {(B, T, D)}: {f32_ms:.4f} ms")
-    return rows, {"encoder_attention_f32_ms": f32_ms,
-                  "encoder_attention_f32_err": extra["float32"][3]}
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    log(f"[kernels] encoder_attention f32 {(N_SEG, T, D)}: "
+        f"{extra['encoder_attention_f32_ms']:.4f} ms")
+    return rows, extra
 
 
 def synth_speech(rng: np.random.Generator, seconds: float) -> np.ndarray:
@@ -439,14 +471,14 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    build_s = phase_build()
+    build_s, sass = phase_build()
     rows, kernel_extra = phase_kernels(gen)
     slice_res = phase_slice()
     calls, launches, breakdown = phase_main(args.profile)
     for r in rows:
         r["launches"] = launches[r["name"]]
 
-    report = {"card": card, "build_s": build_s, "kernels": rows,
+    report = {"card": card, "build_s": build_s, "sass": sass, "kernels": rows,
               "kernel_extra": kernel_extra, "slice": slice_res,
               "main_calls": calls, "breakdown": breakdown,
               "total_s": time.perf_counter() - t_start}

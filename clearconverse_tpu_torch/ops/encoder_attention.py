@@ -2,10 +2,12 @@
 
 Port of the forward pass of the JAX package's Pallas TPU kernel
 ``encoder_attention_pallas`` (clearconverse_tpu/ops/pallas/
-encoder_attention.py). ``encoder_attention`` launches the CUDA kernel for
-CUDA tensors and runs ``encoder_attention_plain`` for CPU tensors; it never
-falls back from one to the other. ``encoder_attention.launches`` counts the
-kernel launches.
+encoder_attention.py), and the counterpart of the library flash kernel
+behind ``clearconverse_tpu.models.whisper._flash_attention`` (same
+function). bf16 runs a wgmma + TMA flash kernel, f32 a scalar one.
+``encoder_attention`` launches the CUDA kernel for CUDA tensors and runs
+``encoder_attention_plain`` for CPU tensors; it never falls back from one to
+the other. ``encoder_attention.launches`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       n_head: int) -> torch.Tensor:
     """q, k, v: [B, T, D] → [B, T, D]; full (unmasked) attention over T.
     CPU tensors: the plain version. CUDA tensors: the kernel, which takes
-    contiguous bf16 or f32 inputs with 64-wide heads and raises otherwise."""
+    contiguous, 16-byte aligned bf16 or f32 inputs with 64-wide heads and
+    raises otherwise."""
     if q.device.type == "cpu":
         return encoder_attention_plain(q, k, v, n_head)
     if q.device.type != "cuda":
@@ -70,6 +73,10 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"of {HEAD_DIM}")
     if not all(x.is_contiguous() for x in (q, k, v)):
         raise ValueError("encoder_attention: inputs must be contiguous")
+    # TMA (bf16) takes only 16-byte aligned bases and row strides.
+    if any(x.data_ptr() % 16 or x.stride(1) * x.element_size() % 16
+           for x in (q, k, v)):
+        raise ValueError("encoder_attention: inputs must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = _lib()
     fn = (lib.cc_encoder_attention_bf16 if q.dtype == torch.bfloat16

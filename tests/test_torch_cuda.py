@@ -72,6 +72,35 @@ def test_k2_matches_plain(cuda, shape, n_head, dtype, atol):
                                ref.float().cpu().numpy(), atol=atol)
 
 
+def _k2_against_plain(q, k, v, n_head, atol):
+    before = k2.encoder_attention.launches
+    out = k2.encoder_attention(q, k, v, n_head)
+    torch.cuda.synchronize()
+    assert k2.encoder_attention.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = k2.encoder_attention_plain(q, k, v, n_head)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=atol)
+
+
+# The bf16 kernel (wgmma + TMA) at the encoder's shape, B up to the engine's
+# transcription batch of 32, and at ragged T around its 128-key and
+# 192-query tiles: TMA zero-fills rows >= T and the kernel masks the last
+# key tile and the last query tile's stores.
+@pytest.mark.parametrize("batch,t_len,n_head", [
+    (1, 1500, 12), (8, 1500, 12), (32, 1500, 12),
+    (2, 1, 2), (2, 65, 2), (2, 127, 2), (2, 128, 2), (2, 129, 2),
+    (2, 193, 2), (2, 300, 2)])
+def test_k2_bf16_matches_plain(cuda, batch, t_len, n_head):
+    """bf16, q, k ~ N(0, 1), v ~ 0.3 N(0, 1); atol 2e-3: the outputs stay
+    below 0.5, where one bf16 step is 2^-9, so kernel and plain version may
+    round an output one step apart."""
+    shape = (batch, t_len, 64 * n_head)
+    q, k, v = (_randn(shape, seed, scale).to(cuda, torch.bfloat16)
+               for seed, scale in ((5, 1.0), (6, 1.0), (7, 0.3)))
+    _k2_against_plain(q, k, v, n_head, 2e-3)
+
+
 def test_k2_rejects_what_it_cannot_take(cuda):
     q = torch.zeros((1, 10, 256), device=cuda)
     with pytest.raises(ValueError):
@@ -82,6 +111,12 @@ def test_k2_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         h = q.half()
         k2.encoder_attention(h, h, h, 4)                     # fp16
+    for dtype in (torch.bfloat16, torch.float32):            # misaligned
+        m = torch.zeros(10 * 256 + 1, device=cuda, dtype=dtype)[1:]
+        m = m.view(1, 10, 256)
+        assert m.is_contiguous() and m.data_ptr() % 16
+        with pytest.raises(ValueError):
+            k2.encoder_attention(m, m, m, 4)
 
 
 def test_tiny_transcription_card_matches_cpu(cuda):
