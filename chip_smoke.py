@@ -7,9 +7,10 @@ Phases, each fatal on failure:
                registers and spills, and each library's count of
                tensor-core instructions (HGMMA, HMMA) in its SASS;
   2. kernels — hold each kernel against its plain PyTorch version on the card
-               at the main path's shapes (K2 bf16 also at the engine's batch
-               of 32), and time kernel, plain version and, where one exists,
-               the single PyTorch library call;
+               at the main path's shapes (K1 on noise and on speech with
+               silence; K1 and K2 bf16 also at the engine's batch of 32), and
+               time kernel, plain version and, where one exists, the single
+               PyTorch library call;
   3. slice   — a 2-layer model at small.en's full width, f32: transcribe_batch
                at t=0 on the card (kernels) and on the CPU (plain versions);
                identical tokens and texts, encoder output and prefill logits
@@ -47,10 +48,10 @@ import torch.nn.functional as F
 SR = 16000
 WINDOW = 30 * SR
 N_SEG = 8                      # segments in the main-path batch
-# H100 SXM published peaks: HBM bytes/s, dense
-# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+# H100 SXM published peaks: HBM bytes/s, dense bf16 and TF32 tensor-core
+# FLOP/s, f32 FLOP/s outside the tensor cores.
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -130,33 +131,64 @@ def phase_kernels(gen: torch.Generator):
     from clearconverse_tpu_torch.ops import logmel as k1
 
     rows = []
-    # K1 at [N_SEG, 30 s] f32.
-    audio = torch.randn((N_SEG, WINDOW), generator=gen, device="cuda") * 0.1
-    power = k1.mel_power(audio)
-    power_ref = k1.mel_power_plain(audio)
-    lm = melmod.log_mel_from_power(power)
-    lm_ref = melmod.log_mel_spectrogram(audio)
-    torch.cuda.synchronize()
-    err = float((lm - lm_ref).abs().max())
-    ok = allclose(power, power_ref, 2e-3, 1e-6) and err <= 5e-4
-    log(f"[kernels] K1 mel_power {tuple(audio.shape)} f32: log-mel max err "
-        f"{err:.3g} (atol 5e-4), power rtol 2e-3/atol 1e-6 -> "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("K1 disagrees with its plain version")
+    # K1 at [N_SEG, 30 s] and at the engine's batch of 32, f32, on noise and
+    # on speech rows padded with silence (quiet bins near the clamp floor).
+    # Bound: the least work the function needs. Bytes: the audio read, the
+    # mel power written and the DFT and filterbank read once. Operations, at
+    # the f32 rate: per frame the window (400 products), a real 400-point
+    # FFT (2.5 N log2 N flops, half the usual 5 N log2 N of a complex one),
+    # the power (3 flops a bin) and the slaney filterbank's nonzeros (2
+    # flops each). Kept apart, for the record, in kernel_extra: 3 TF32
+    # products per dense DFT and mel product (bound_dense_ms) and one f32
+    # FMA per dense product (bound_f32_fma_ms).
+    rng = np.random.default_rng(0)
     n_frames = WINDOW // 160
-    flops = N_SEG * n_frames * (2 * 2 * 400 * 201 + 2 * 201 * 80)
-    mats = melmod.device_matrices(audio.device)
-    moved = 4 * (audio.numel() + power.numel() + sum(m.numel() for m in mats))
-    b_ms, b_by = bound_ms(moved, flops, "float32")
-    rows.append({
-        "name": "mel_power", "route": "cuda",
-        "source": "clearconverse_tpu_torch/csrc/logmel.cu",
-        "replaces": "clearconverse_tpu/ops/pallas/logmel.py:57",
-        "launches": 0, "max_abs_err": err,
-        "ms": time_ms(lambda: k1.mel_power(audio)),
-        "plain_ms": time_ms(lambda: k1.mel_power_plain(audio)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    frame_flops = (400 + 2.5 * 400 * math.log2(400) + 3 * 201
+                   + 2 * int(np.count_nonzero(melmod.mel_filterbank(80))))
+    k1_rows, k1_bounds = {}, {}
+    for B in (N_SEG, 32):
+        inputs = {
+            "noise": torch.randn((B, WINDOW), generator=gen, device="cuda") * 0.1,
+            "speech": torch.from_numpy(np.stack([
+                np.pad(synth_speech(rng, s), (0, WINDOW - int(s * SR)))
+                for s in np.linspace(5.0, 20.0, B)])).cuda()}
+        errs = {}
+        for label, audio in inputs.items():
+            power = k1.mel_power(audio)
+            power_ref = k1.mel_power_plain(audio)
+            lm = melmod.log_mel_from_power(power)
+            lm_ref = melmod.log_mel_spectrogram(audio)
+            torch.cuda.synchronize()
+            err = float((lm - lm_ref).abs().max())
+            ok = allclose(power, power_ref, 2e-3, 1e-6) and err <= 5e-4
+            log(f"[kernels] K1 mel_power {tuple(audio.shape)} f32 {label}: "
+                f"log-mel max err {err:.3g} (atol 5e-4), power rtol 2e-3/"
+                f"atol 1e-6 -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("K1 disagrees with its plain version")
+            errs[label] = err
+            del power, power_ref, lm, lm_ref
+        audio = inputs["noise"]
+        dense = B * n_frames * (2 * 2 * 400 * 201 + 2 * 201 * 80)
+        moved = 4 * (audio.numel() + B * n_frames * 80
+                     + 2 * 400 * 201 + 201 * 80)
+        b_ms, b_by = bound_ms(moved, B * n_frames * frame_flops, "float32")
+        k1_rows[B] = {
+            "name": "mel_power", "route": "cuda",
+            "source": "clearconverse_tpu_torch/csrc/logmel.cu",
+            "replaces": "clearconverse_tpu/ops/pallas/logmel.py:57",
+            "launches": 0, "max_abs_err": max(errs.values()),
+            "ms": time_ms(lambda: k1.mel_power(audio)),
+            "plain_ms": time_ms(lambda: k1.mel_power_plain(audio)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        k1_bounds[f"B={B}"] = {
+            "bound_dense_ms": bound_ms(moved, 3 * dense, "tfloat32")[0],
+            "bound_f32_fma_ms": bound_ms(moved, dense, "float32")[0]}
+        del inputs, audio
+    rows.append(k1_rows[N_SEG])
+    extra = {"mel_power_b32": {key: val for key, val in k1_rows[32].items()
+                               if key != "launches"},
+             "mel_power_other_bounds": k1_bounds}
 
     # K2 at T=1500, D=768, H=12: bf16 (the main path's dtype) at B=N_SEG and
     # at the engine's transcription batch of 32, and f32 at B=N_SEG. q, k ~
@@ -164,7 +196,6 @@ def phase_kernels(gen: torch.Generator):
     # tests/test_pallas.py, so outputs stay below 0.25, where one bf16
     # rounding step of the output (both sides round it) is under 1e-3.
     T, D, H = 1500, 768, 12
-    extra = {}
     k2_rows = {}
     for B, dtype, atol in ((N_SEG, "float32", 1e-4), (N_SEG, "bfloat16", 2e-3),
                            (32, "bfloat16", 2e-3)):
@@ -204,7 +235,8 @@ def phase_kernels(gen: torch.Generator):
     rows.append(k2_rows[N_SEG])
     extra["encoder_attention_b32"] = {key: val for key, val in k2_rows[32].items()
                                       if key != "launches"}
-    for label, r in [("", x) for x in rows] + [(" (B=32)", k2_rows[32])]:
+    for label, r in [("", x) for x in rows] + [
+            (" (B=32)", k1_rows[32]), (" (B=32)", k2_rows[32])]:
         log(f"[kernels] {r['name']}{label}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "

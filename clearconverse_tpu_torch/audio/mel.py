@@ -75,8 +75,8 @@ def _dft_matrices(n_fft: int = N_FFT):
 @lru_cache(maxsize=8)
 def device_matrices(device: torch.device, n_mels: int = N_MELS):
     """(cos [400, 201], sin [400, 201], filterbank [201, n_mels]) as f32
-    tensors on ``device``, row-major (the K1 kernel indexes them so),
-    uploaded once per device."""
+    tensors on ``device``, row-major, uploaded once per device: the plain
+    version's operands (K1 takes ops/logmel.py::kernel_operands)."""
     cos_m, sin_m = _dft_matrices()
     fb = mel_filterbank(n_mels=n_mels)     # a transposed, column-major array
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)

@@ -33,20 +33,64 @@ def _randn(shape, seed, scale=1.0):
                             .astype(np.float32) * scale)
 
 
+def _k1_against_plain(a, n_mels=80):
+    """Mel power rtol 2e-3 / atol 1e-6, log-mel atol 5e-4."""
+    before = k1.mel_power.launches
+    power = k1.mel_power(a, n_mels)
+    torch.cuda.synchronize()
+    assert k1.mel_power.launches == before + 1
+    assert power.shape == (a.shape[0], a.shape[1] // 160, n_mels)
+    ref = k1.mel_power_plain(a, n_mels)
+    np.testing.assert_allclose(power.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-3, atol=1e-6)
+    np.testing.assert_allclose(
+        tmel.log_mel_from_power(power).cpu().numpy(),
+        tmel.log_mel_spectrogram(a, n_mels).cpu().numpy(), atol=5e-4)
+
+
+def _speech_then_silence(batch, t, seed):
+    """Voiced, syllable-modulated harmonics for the first 40 % of each row,
+    digital silence after."""
+    rng = np.random.default_rng(seed)
+    n = int(0.4 * t)
+    tt = np.arange(n) / 16000
+    out = np.zeros((batch, t), np.float32)
+    for row in out:
+        f0 = 110 + 40 * np.sin(2 * np.pi * rng.uniform(0.2, 0.6) * tt)
+        phase = 2 * np.pi * np.cumsum(f0) / 16000
+        voiced = sum(np.sin(h * phase) / h for h in range(1, 12))
+        env = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(3, 5) * tt)) ** 2
+        sig = voiced * env + 0.02 * rng.standard_normal(n)
+        row[:n] = 0.3 * sig / np.abs(sig).max()
+    return torch.from_numpy(out)
+
+
 @pytest.mark.parametrize("t", [480000, 33600])   # 30 s; 210 frames
 def test_k1_matches_plain(cuda, t):
     """Mel power rtol 2e-3 / atol 1e-6, log-mel atol 5e-4."""
-    a = _randn((2, t), 0, 0.2).to(cuda)
-    before = k1.mel_power.launches
-    power = k1.mel_power(a)
-    torch.cuda.synchronize()
-    assert k1.mel_power.launches == before + 1
-    ref = k1.mel_power_plain(a)
-    np.testing.assert_allclose(power.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=2e-3, atol=1e-6)
-    np.testing.assert_allclose(tmel.log_mel_auto(a).cpu().numpy(),
-                               tmel.log_mel_spectrogram(a).cpu().numpy(),
-                               atol=5e-4)
+    _k1_against_plain(_randn((2, t), 0, 0.2).to(cuda))
+
+
+# The tensor-core kernel at the main path's 30 s rows, B up to the engine's
+# transcription batch of 32, and at frame counts around its 192-frame tile
+# (the last tile is ragged; the wrapper refuses T <= 200).
+@pytest.mark.parametrize("batch,n_frames", [
+    (1, 3000), (8, 3000), (32, 3000),
+    (2, 2), (2, 191), (2, 192), (2, 193), (2, 385)])
+def test_k1_tiles_match_plain(cuda, batch, n_frames):
+    _k1_against_plain(_randn((batch, 160 * n_frames), 8, 0.1).to(cuda))
+
+
+@pytest.mark.parametrize("batch,t", [(8, 480000), (2, 33600)])
+def test_k1_speech_with_silence_matches_plain(cuda, batch, t):
+    """Speech then digital silence: quiet bins near the clamp floor."""
+    _k1_against_plain(_speech_then_silence(batch, t, 9).to(cuda))
+
+
+@pytest.mark.parametrize("n_mels", [128, 77])
+def test_k1_other_mel_counts_match_plain(cuda, n_mels):
+    """128 mels (large-v3) take the m64n128 instance; 77 pads to 80."""
+    _k1_against_plain(_randn((2, 33600), 10, 0.1).to(cuda), n_mels)
 
 
 def test_k1_rejects_what_it_cannot_take(cuda):
@@ -54,6 +98,31 @@ def test_k1_rejects_what_it_cannot_take(cuda):
         k1.mel_power(torch.zeros((1, 16001), device=cuda))        # not a hop multiple
     with pytest.raises(ValueError):
         k1.mel_power(torch.zeros((1, 16000), device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        k1.mel_power(torch.zeros((1, 160), device=cuda))          # T <= 200
+    m = torch.zeros(16000 + 1, device=cuda)[1:].view(1, 16000)    # misaligned
+    assert m.is_contiguous() and m.data_ptr() % 16
+    with pytest.raises(ValueError):
+        k1.mel_power(m)
+
+
+def test_k1_refuses_operands_of_another_layout(cuda):
+    """The kernel holds the operand buffer's size against its own Shape: a
+    buffer one stage short, or as long as the unfolded layout, is refused
+    with cudaErrorInvalidValue (1) before any launch."""
+    a = _randn((1, 16000), 0, 0.1).to(cuda)
+    out = torch.empty((1, 100, 80), device=cuda)
+    ops = k1.device_operands(a.device, 80)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def rc(n_bytes):
+        return k1._lib().cc_mel_power(a.data_ptr(), 1, 16000, ops.data_ptr(),
+                                      n_bytes, 80, out.data_ptr(), stream)
+
+    assert rc(ops.numel() * 4 - k1.tile_shape(80).stage_bytes) == 1
+    assert rc(k1.kernel_operands(80, folded=False).nbytes) == 1
+    assert rc(ops.numel() * 4) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("shape,n_head", [((2, 1500, 768), 12), ((2, 300, 256), 4)])
