@@ -19,11 +19,26 @@ Phases, each fatal on failure:
                else seeded random weights) with the default TorchConfig knobs
                (bf16, int8 cross-KV, temperature 0.1, best_of 5) transcribes
                segments of a synthetic WAV as a host batch and as a StoreBatch,
-               then once more at t=0; every kernel's launch count must rise.
+               then once more at t=0; every kernel's launch count must rise;
+  5. engine  — TranscriptionEngine.process_files (the user's entry point) on
+               8 WAV files of 60 s at the full width of Whisper small.en,
+               PyanNet and ECAPA (checkpoints from ./models if present, else
+               seeded random weights): one cold pass, two timed passes; RTFx,
+               the stage split, segments per file, the audio wire, peak
+               device memory and K1/K2 launches. It fails on a None file, an
+               ERROR log record of the port, a wire other than packed_delta,
+               a >30 s segment without transcribe_long_batch, or a kernel that
+               did not launch;
+  6. engine card vs CPU — the same seeded speaker weights and a 2-layer
+               small.en-width Whisper, f32, t=0: process_files on one 12 s
+               file on the card and on the CPU; identical segments, labels and
+               texts, embeddings within 1e-4.
 Then it prints the kernels JSON line, the card's name and power limit, and,
 last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
+(--profile also traces one transcribe_batch call and one engine pass with
+torch.profiler: kernel time by name and the card's busy share.)
 Without a CUDA card it exits non-zero and prints no result.
 """
 
@@ -33,6 +48,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import logging
 import math
 import os
 import re
@@ -457,17 +473,25 @@ def stage_breakdown(bundle, host_batch):
 
 
 def profile_decode(bundle, host_batch, unprofiled_wall: float):
-    """CUDA kernel time by name and the device's busy share over one
-    transcribe_batch call (torch.profiler). The share is given against the
-    profiled wall time and against ``unprofiled_wall``, the same call's
-    time without the profiler's host overhead."""
+    """profile_call over one t=0.1 transcribe_batch call."""
+    return profile_call(
+        lambda: bundle.transcribe_batch(host_batch, [""] * N_SEG,
+                                        temperature=0.1),
+        unprofiled_wall, "profile")
+
+
+def profile_call(fn, unprofiled_wall: float, tag: str):
+    """CUDA kernel time by name and the device's busy share over one call of
+    ``fn`` (torch.profiler). The share is given against the profiled wall
+    time and against ``unprofiled_wall``, the same call's time without the
+    profiler's host overhead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        bundle.transcribe_batch(host_batch, [""] * N_SEG, temperature=0.1)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -476,21 +500,233 @@ def profile_decode(bundle, host_batch, unprofiled_wall: float):
     busy = sum(dev_us.values()) / 1e6
     n_launch = sum(e.count for e in kernels)
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
-    log(f"[profile] kernels {n_launch}, device busy {busy:.4f} s; share "
+    log(f"[{tag}] kernels {n_launch}, device busy {busy:.4f} s; share "
         f"{100 * busy / wall:.1f}% of the profiled wall {wall:.3f} s, "
         f"{100 * busy / unprofiled_wall:.1f}% of the unprofiled "
         f"{unprofiled_wall:.3f} s")
     for name, us in top:
-        log(f"[profile]   {us / 1e3:9.2f} ms  {name[:90]}")
+        log(f"[{tag}]   {us / 1e3:9.2f} ms  {name[:90]}")
     return {"profiled_wall_s": wall, "unprofiled_wall_s": unprofiled_wall,
             "device_busy_s": busy, "kernel_launches": n_launch,
             "top_ms": [(n, us / 1e3) for n, us in top]}
 
 
+def engine_wavs(tmp: str, n_files: int = 8):
+    """n_files WAVs of 60 s: the speech-shaped two-speaker conversation tiled
+    five times, plus band-limited noise of σ 0.01, a different draw per file
+    (the JAX package's engine workload in bench.py)."""
+    from clearconverse_tpu_torch.audio.wav import write_wav
+    from clearconverse_tpu_torch.pipeline.dev_backend import (
+        synth_conversation_speech)
+    rng = np.random.default_rng(0)
+    base = np.tile(synth_conversation_speech(), 5)
+    paths = []
+    for i in range(n_files):
+        w = rng.standard_normal(base.size + 8).astype(np.float32)
+        c = np.cumsum(w, dtype=np.float64)
+        noise = ((c[8:] - c[:-8]) / 8.0)[:base.size]
+        noise = (noise * (0.01 / noise.std())).astype(np.float32)
+        path = os.path.join(tmp, f"conv_{i}.wav")
+        write_wav(path, base + noise, SR)
+        paths.append(path)
+    return paths, base.size / SR
+
+
+class _Errors(logging.Handler):
+    """Collects the port's ERROR records during a phase."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def _count_calls(bundle, name: str, counter: dict):
+    orig = getattr(bundle, name)
+
+    def counted(*args, **kw):
+        counter[name] = counter.get(name, 0) + 1
+        return orig(*args, **kw)
+    setattr(bundle, name, counted)
+
+
+def phase_engine(profile: bool):
+    """The engine's default pass at full width through process_files; with
+    ``profile``, one more pass under torch.profiler."""
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.ops import encoder_attention as k2
+    from clearconverse_tpu_torch.ops import logmel as k1
+    from clearconverse_tpu_torch.pipeline.engine import TranscriptionEngine
+
+    errors = _Errors()
+    port_log = logging.getLogger("clearconverse_tpu_torch")
+    port_log.addHandler(errors)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            paths, file_s = engine_wavs(tmp)
+            audio_s = file_s * len(paths)
+            t0 = time.perf_counter()
+            tc = TorchConfig(diarization_onset=0.35, diarization_offset=0.25,
+                             max_decode_tokens=64, max_fallback_attempts=1)
+            eng = TranscriptionEngine(Config(noise_reduction_amount=0.2), tc,
+                                      model_dir="./models",
+                                      load_models_immediately=True)
+            if not eng.models_are_loaded():
+                raise SystemExit("engine: model load failed")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            log(f"[engine] weights {eng.models.load_source}, knobs {tc}, "
+                f"loaded in {load_s:.1f} s")
+            calls = {}
+            for name in ("transcribe_batch", "transcribe_long_batch"):
+                _count_calls(eng.models, name, calls)
+            k1.mel_power.launches = 0
+            k2.encoder_attention.launches = 0
+            passes = []
+            for label in ("cold", "timed 1", "timed 2"):
+                calls.clear()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                results = eng.process_files(paths)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if any(r is None for r in results):
+                    raise SystemExit(f"engine {label}: a file returned None")
+                segs = [r["segments"] for r in results]
+                longest = max(s.end - s.start for f in segs for s in f)
+                if longest > 30.0 and not calls.get("transcribe_long_batch"):
+                    raise SystemExit(f"engine {label}: a {longest:.1f} s "
+                                     "segment decoded without "
+                                     "transcribe_long_batch")
+                for f in segs:
+                    for s in f:
+                        if not (isinstance(s.transcription, str)
+                                and np.isfinite(s.audio).all()):
+                            raise SystemExit(f"engine {label}: bad segment")
+                p = {"pass": label, "audio_s": audio_s, "wall_s": wall,
+                     "rtfx": audio_s / wall,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "segments_per_file": [len(f) for f in segs],
+                     "longest_segment_s": longest, "calls": dict(calls),
+                     "stage_times": dict(eng.last_run_stage_times),
+                     "wire": dict(eng.last_run_wire)}
+                passes.append(p)
+                log(f"[engine] {label}: {len(paths)} files x {file_s:.0f} s, "
+                    f"wall {wall:.3f} s, RTFx {p['rtfx']:.1f}, peak mem "
+                    f"{p['peak_mem_gb']:.2f} GB, segments per file "
+                    f"{p['segments_per_file']} (longest {longest:.2f} s), "
+                    f"bundle calls {p['calls']}")
+                split = ", ".join(f"{k} {v:.4f}" for k, v in
+                                  sorted(p["stage_times"].items()))
+                log(f"[engine]   stage split (s): {split}")
+            wire = passes[-1]["wire"]
+            log(f"[engine] wire {wire}")
+            if wire.get("format") != "packed_delta":
+                raise SystemExit(f"engine: the wire is {wire.get('format')}, "
+                                 "not packed_delta")
+            launches = {"mel_power": k1.mel_power.launches,
+                        "encoder_attention": k2.encoder_attention.launches}
+            log(f"[engine] kernel launches in the phase's three passes: "
+                f"{launches}")
+            if min(launches.values()) == 0:
+                raise SystemExit("engine: a kernel was never launched")
+            prof = (profile_call(lambda: eng.process_files(paths),
+                                 passes[-1]["wall_s"], "engine profile")
+                    if profile else None)
+    finally:
+        port_log.removeHandler(errors)
+    if errors.records:
+        raise SystemExit("engine: the port logged errors: " + "; ".join(
+            r.getMessage() for r in errors.records[:5]))
+    return {"load_s": load_s, "passes": passes, "launches": launches,
+            "profile": prof}
+
+
+def phase_engine_parity():
+    """process_files on the card and on the CPU with the same seeded
+    weights: full-width PyanNet and ECAPA, 2-layer small.en-width Whisper,
+    f32, t=0."""
+    from clearconverse_tpu_torch.audio.wav import write_wav
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.ecapa import EcapaDims, init_ecapa
+    from clearconverse_tpu_torch.models.pyannet import PyannetDims, init_pyannet
+    from clearconverse_tpu_torch.models.tokenizer import ByteFallbackTokenizer
+    from clearconverse_tpu_torch.models.whisper import model_dims
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    from clearconverse_tpu_torch.pipeline.dev_backend import (
+        synth_conversation_speech)
+    from clearconverse_tpu_torch.pipeline.engine import TranscriptionEngine
+
+    dims = dataclasses.replace(model_dims("small.en"), n_audio_layer=2,
+                               n_text_layer=2)
+    tc = TorchConfig(compute_dtype="float32", cross_kv_bits=16,
+                     max_decode_tokens=32, diarization_onset=0.35,
+                     diarization_offset=0.25)
+    cpu_whisper = init_whisper(dims, seed=1, device="cpu")
+    # Every row of the token table but the 256 byte ids and EOT shrinks
+    # 100x, so the decode emits bytes the byte-fallback tokenizer renders
+    # as text, and the no-speech gate (which would blank it) stays shut.
+    with torch.no_grad():
+        cpu_whisper.decoder.tok[256:50256] *= 0.01
+        cpu_whisper.decoder.tok[50257:] *= 0.01
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "conversation.wav")
+        write_wav(path, synth_conversation_speech(), SR)
+        for dev in ("cuda", "cpu"):
+            b = ModelBundle(Config(temperature=0.0), tc, device=dev)
+            b._whisper = (copy.deepcopy(cpu_whisper).to(dev), dims,
+                          ByteFallbackTokenizer(english=True))
+            b._ecapa, b._ecapa_dims = init_ecapa(EcapaDims(), 2, dev), EcapaDims()
+            b._pyannet, b._pyannet_dims = (init_pyannet(PyannetDims(), 3, dev),
+                                           PyannetDims())
+            b._loaded = True
+            embs = []
+            for name in ("embed_batch", "embed_store", "embed_frames_store",
+                         "embed_denoised_store", "embed_denoised_batch"):
+                orig = getattr(b, name)
+
+                def recorded(*a, _orig=orig, **kw):
+                    out = _orig(*a, **kw)
+                    embs.append(out[0] if isinstance(out, tuple) else out)
+                    return out
+                setattr(b, name, recorded)
+            t0 = time.perf_counter()
+            res, = TranscriptionEngine(Config(temperature=0.0), tc,
+                                       models=b).process_files([path])
+            wall = time.perf_counter() - t0
+            if res is None:
+                raise SystemExit(f"engine parity: the file returned None on {dev}")
+            outs[dev] = ([(s.start, s.end, s.speaker_id, s.is_overlap,
+                           s.transcription) for s in res["segments"]],
+                         embs, wall)
+    same = outs["cuda"][0] == outs["cpu"][0]
+    n_emb = [len(outs[d][1]) for d in ("cuda", "cpu")]
+    emb_err = (max(float(np.abs(a - c).max()) for a, c in
+                   zip(outs["cuda"][1], outs["cpu"][1]))
+               if n_emb[0] == n_emb[1] and n_emb[0] else float("inf"))
+    log(f"[parity] 12 s file, card vs CPU: segments {len(outs['cuda'][0])}, "
+        f"segments/labels/texts identical {same}, embedding calls {n_emb}, "
+        f"max embedding err {emb_err:.3g} (atol 1e-4); wall card "
+        f"{outs['cuda'][2]:.2f} s, CPU {outs['cpu'][2]:.2f} s")
+    for seg in outs["cuda"][0]:
+        log(f"[parity]   {seg[0]:.2f}-{seg[1]:.2f} {seg[2]} "
+            f"overlap={seg[3]} text={seg[4][:60]!r}")
+    if not (same and outs["cuda"][0] and emb_err <= 1e-4
+            and any(seg[4] for seg in outs["cuda"][0])):
+        raise SystemExit("engine parity: card and CPU disagree")
+    return {"segments": outs["cuda"][0], "identical": same,
+            "embedding_calls": n_emb, "max_embedding_err": emb_err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one main-path call with torch.profiler")
+                    help="also trace one main-path call and one engine pass "
+                         "with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -503,16 +739,28 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    build_s, sass = phase_build()
-    rows, kernel_extra = phase_kernels(gen)
-    slice_res = phase_slice()
-    calls, launches, breakdown = phase_main(args.profile)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[phase] {name}: {phase_s[name]:.1f} s")
+        return out
+
+    build_s, sass = timed("build", phase_build)
+    rows, kernel_extra = timed("kernels", phase_kernels, gen)
+    slice_res = timed("slice", phase_slice)
+    calls, launches, breakdown = timed("main", phase_main, args.profile)
     for r in rows:
         r["launches"] = launches[r["name"]]
+    engine = timed("engine", phase_engine, args.profile)
+    parity = timed("engine_parity", phase_engine_parity)
 
     report = {"card": card, "build_s": build_s, "sass": sass, "kernels": rows,
               "kernel_extra": kernel_extra, "slice": slice_res,
-              "main_calls": calls, "breakdown": breakdown,
+              "main_calls": calls, "breakdown": breakdown, "engine": engine,
+              "engine_parity": parity, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as fh:

@@ -1,8 +1,9 @@
 """RIFF/WAVE codec, numpy path.
 
 PCM 8/16/24/32-bit and IEEE float 32/64, any channel count, tolerant of the
-extension chunks real encoders emit. The JAX package's native C fast path is
-not part of this port yet.
+extension chunks real encoders emit. ``read_wav_i16`` is the raw fast path
+for mono 16-bit PCM that ``audio/decode.load_audio_many`` sends to the device
+as int16.
 """
 
 from __future__ import annotations
@@ -43,10 +44,24 @@ def _scan_chunks(path: str):
     return fmt, payload
 
 
-def read_wav(path: str) -> Tuple[np.ndarray, int]:
+def read_wav_i16(path: str, scanned=None):
+    """Mono 16-bit PCM → (int16 [T] samples, rate), or None for any other
+    layout: the native grid goes to the device without a float round trip.
+    ``scanned`` (a prior ``_scan_chunks`` result) skips re-reading the file
+    when the caller probes this path before falling back to read_wav."""
+    fmt, payload = scanned if scanned is not None else _scan_chunks(path)
+    tag, channels, rate, bits = fmt
+    if tag != _PCM or bits != 16 or channels != 1:
+        return None
+    return np.frombuffer(payload, dtype="<i2"), rate
+
+
+def read_wav(path: str, scanned=None) -> Tuple[np.ndarray, int]:
     """Read a WAV file → (float32 samples in [-1, 1] of shape [channels, T],
-    sample_rate). Channel-major, as torchaudio.load returns it."""
-    (tag, channels, rate, bits), payload = _scan_chunks(path)
+    sample_rate). Channel-major, as torchaudio.load returns it. ``scanned``
+    reuses a prior ``_scan_chunks`` result (see read_wav_i16)."""
+    (tag, channels, rate, bits), payload = (
+        scanned if scanned is not None else _scan_chunks(path))
     samples = _decode_pcm(payload, tag, bits)
     if channels > 1:
         usable = (samples.shape[0] // channels) * channels

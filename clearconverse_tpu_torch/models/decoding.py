@@ -54,6 +54,14 @@ class DecodeOptions:
     # ``sot_from_end`` slots before the prompt end.
     no_speech_token: int = -1
     sot_from_end: int = 2
+    # Timestamp decoding (whisper ApplyTimestampRules, for the >30 s seek
+    # path): tokens >= timestamp_begin are timestamps at 0.02 s. The first
+    # sampled token is a timestamp (at most max_initial_timestamp_index),
+    # timestamps pair up and never decrease, and when the total timestamp
+    # probability beats the best text token the sample is a timestamp.
+    timestamps: bool = False
+    timestamp_begin: int = -1
+    max_initial_timestamp_index: int = 50   # 1.0 s / 0.02
     # Sampling replicas per source row (whisper best_of). The audio/mel
     # batch carries UNIQUE rows; prompts/outputs carry rows × replicas
     # (replicas consecutive per row), and every replica group shares one
@@ -94,6 +102,41 @@ def _suppress(logits: torch.Tensor, opts: DecodeOptions,
         logits = logits.clone()
         logits[..., [opts.blank_token, opts.eot]] = _NEG_INF
     return logits
+
+
+def _timestamp_rules(logits: torch.Tensor, opts: DecodeOptions,
+                     is_first: bool, prev: torch.Tensor, prev2: torch.Tensor,
+                     last_ts: torch.Tensor, step: int) -> torch.Tensor:
+    """whisper ApplyTimestampRules on [B, V] f32 logits. ``prev``/``prev2``
+    are the last two sampled tokens (-1 = none); ``last_ts`` is the latest
+    sampled timestamp token (-1 = none)."""
+    tsb = opts.timestamp_begin
+    idx = torch.arange(logits.shape[-1], device=logits.device)[None, :]
+    ts_region = idx >= tsb
+    if is_first:
+        # The first sampled token is a timestamp of at most 1.0 s.
+        logits = logits.masked_fill(
+            (idx < tsb) | (idx > tsb + opts.max_initial_timestamp_index),
+            _NEG_INF)
+    else:
+        last_was = prev >= tsb
+        pen_was = (prev2 >= tsb) | (step < 2)
+        # A closed pair (or a lone initial timestamp) → text next; an open
+        # end candidate → a timestamp or EOT next.
+        r1 = (last_was & pen_was)[:, None] & ts_region
+        r2 = (last_was & ~pen_was)[:, None] & (idx < opts.eot)
+        # Non-decreasing; after a closed pair, strictly greater.
+        min_allowed = torch.where(
+            last_ts < 0, torch.full_like(last_ts, tsb),
+            torch.where(last_was & ~pen_was, last_ts, last_ts + 1))
+        r3 = ts_region & (idx < min_allowed[:, None])
+        logits = logits.masked_fill(r1 | r2 | r3, _NEG_INF)
+    # When the total timestamp probability beats every text token, force a
+    # timestamp (whisper's sum-of-logprobs rule).
+    logp = F.log_softmax(logits, dim=-1)
+    force = (torch.logsumexp(logp[:, tsb:], dim=-1)
+             > logp[:, :tsb].amax(dim=-1))
+    return logits.masked_fill(force[:, None] & (idx < tsb), _NEG_INF)
 
 
 def _pick(logits: torch.Tensor, opts: DecodeOptions,
@@ -282,6 +325,9 @@ def greedy_decode(
 
     with _span(timer, "token_loop"):
         first = _suppress(logits[:, -1, :], opts, True)
+        none = torch.full((B,), -1, dtype=torch.long, device=dev)
+        if opts.timestamps:
+            first = _timestamp_rules(first, opts, True, none, none, none, 0)
         logp0 = F.log_softmax(first, dim=-1)
         tok0 = _pick(first, opts, generator)
 
@@ -290,7 +336,9 @@ def greedy_decode(
         tokens[:, 0] = tok0
         finished = tok0 == eot
         slp = logp0.gather(1, tok0[:, None])[:, 0]
-        prev = tok0
+        prev, prev2 = tok0, none
+        last_ts = (torch.where(tok0 >= opts.timestamp_begin, tok0, none)
+                   if opts.timestamps else none)
         kslot = torch.arange(max_len, device=dev)[None, None, None, :]
         padded = kslot < pad[:, None, None, :]            # [B,1,1,max_len]
 
@@ -305,6 +353,9 @@ def greedy_decode(
                 model, prev[:, None], pos[:, None], P + step - 1, self_kv,
                 cross_kv, mask.float(), None, dims, opts.compute_dtype)
             lg = _suppress(logits[:, 0, :], opts, False)
+            if opts.timestamps:
+                lg = _timestamp_rules(lg, opts, False, prev, prev2, last_ts,
+                                      step)
             logp = F.log_softmax(lg, dim=-1)
             nxt = _pick(lg, opts, generator)
             # openai-whisper caps sample_len so prompt+generation <=
@@ -316,7 +367,10 @@ def greedy_decode(
                                     logp.gather(1, nxt[:, None])[:, 0])
             tokens[:, step] = nxt
             finished = done | (nxt == eot)
-            prev = nxt
+            if opts.timestamps:
+                last_ts = torch.where((nxt >= opts.timestamp_begin) & ~done,
+                                      nxt, last_ts)
+            prev, prev2 = nxt, prev
             step += 1
 
     out = _finalize_decode(tokens, slp, no_speech_prob, opts)

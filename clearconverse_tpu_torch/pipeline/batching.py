@@ -51,3 +51,12 @@ def batch_audio(
             cur_bucket = bucket
         if idx >= 0:
             group.append(idx)
+
+
+def split_long(clip, sr: int, max_s: float = 30.0) -> List:
+    """Split a clip into ≤max_s pieces (whisper's window). A clip within the
+    limit comes back as is, so a lazy clip stays unread."""
+    limit = int(max_s * sr)
+    if len(clip) <= limit:
+        return [clip]
+    return [clip[i : i + limit] for i in range(0, max(len(clip), 1), limit)]

@@ -1,13 +1,17 @@
-"""ModelBundle, transcription half: the engine's interface to the device.
+"""ModelBundle: the engine's interface to the device.
 
-Mirrors the JAX package's pipeline/bundle.py for the transcription program:
+Mirrors the JAX package's pipeline/bundle.py. The transcription program:
 ``transcribe_batch`` takes a batch of padded segments (host arrays or
 windows into a device-resident ``AudioStore``) and runs pad/trim → log-mel
 → encoder → cross-KV → prefill → KV-cached token loop on the bundle's
 device, with whisper's temperature / best_of / no-speech semantics on the
-host. The speaker, separation, alignment and long-form methods are not
-ported yet; calling one raises ``NotImplementedError`` naming its ROADMAP
-item.
+host; ``transcribe_long_batch`` decodes one ≤30 s window of a longer
+segment with timestamp tokens (whisper's seek loop). The speaker half:
+PyanNet segmentation (``segment_frames``) and ECAPA embeddings
+(``embed_*``), from host batches or from store windows, with the same row
+bucketing as the transcription program. Separation, alignment and the
+native checkpoint format are not ported yet; calling one raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from clearconverse_tpu_torch.config import Config, TorchConfig
+from clearconverse_tpu_torch.pipeline.cancel import ProcessingCancelled
+from clearconverse_tpu_torch.utils.errors import is_fatal
 from clearconverse_tpu_torch.utils.tracing import StageTimer
 
 logger = logging.getLogger(__name__)
@@ -49,6 +55,22 @@ def _row_bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _pad_rows(arrays, fills):
+    """Pad each array's leading axis to the row bucket with its ``fills``
+    value (1 for lengths, so padded rows stay valid); returns (padded
+    arrays, n_real)."""
+    n_real = len(arrays[0])
+    b = _row_bucket(n_real)
+    if b == n_real:
+        return arrays, n_real
+    out = []
+    for a, fill in zip(arrays, fills):
+        a = np.asarray(a)
+        widths = [(0, b - n_real)] + [(0, 0)] * (a.ndim - 1)
+        out.append(np.pad(a, widths, constant_values=fill))
+    return out, n_real
 
 
 class AudioStore:
@@ -130,7 +152,7 @@ def _not_ported(name: str, item: str):
 
 
 class ModelBundle:
-    """Whisper transcription on one device (``cuda`` unless the caller
+    """Whisper, PyanNet and ECAPA on one device (``cuda`` unless the caller
     passes ``device="cpu"``). Lazy: ``_ensure`` loads on first use;
     ``load_with_progress`` follows the reference's staged percentages."""
 
@@ -151,6 +173,15 @@ class ModelBundle:
         # "random_init".
         self.load_source: dict = {}
         self._whisper = None       # (Whisper module, dims, tokenizer)
+        self._ecapa = None         # ECAPA weights (models/ecapa)
+        self._pyannet = None       # PyanNet weights (models/pyannet)
+        # Dims default to the production configurations; tests inject
+        # smaller ones alongside their weights.
+        self._ecapa_dims = None
+        self._pyannet_dims = None
+        # Cancel gate: the engine installs it per run, and every batched
+        # compute method probes it before it starts device work.
+        self.should_cancel: Optional[Callable[[], bool]] = None
         # Per-call sampling seed: fallback rungs draw fresh randomness on
         # every decode.
         self._decode_seed = 0
@@ -186,9 +217,11 @@ class ModelBundle:
                 else torch.float32)
 
     def load_with_progress(self, progress_callback: Optional[Callable] = None) -> bool:
-        """The Whisper and tokenizer stages of the reference's staged load
-        (back/api.py:617-655). Weights land on the device once, in the
-        compute dtype."""
+        """The reference's staged load (back/api.py:617-655) and its
+        percentages: separation (10; not ported, ROADMAP slice 3) → Whisper
+        and tokenizer (40) → speaker models (70) → done (100). Weights land
+        on the device once; ``load_source`` names where each family's
+        weights came from ("checkpoint" or "random_init")."""
         from clearconverse_tpu_torch.models.convert import (
             init_whisper, load_whisper)
         from clearconverse_tpu_torch.models.tokenizer import load_tokenizer
@@ -198,7 +231,8 @@ class ModelBundle:
                 progress_callback(pct, msg)
 
         try:
-            self.load_source = {}
+            self.load_source = {"sepformer": "not_ported"}
+            cb(10, "Loading separation model")
             cb(40, "Loading Whisper model")
             size = self.config.whisper_model_size
             model, dims = load_whisper(self.model_dir, size, self.device,
@@ -213,15 +247,67 @@ class ModelBundle:
             tok = load_tokenizer(self.model_dir, english=size.endswith(".en"))
             self.load_source["tokenizer"] = type(tok).__name__
             self._whisper = (model, dims, tok)
+            cb(70, "Loading speaker models")
+            self._ecapa = self._load_ecapa()
+            self._pyannet = self._load_pyannet()
             cb(100, "Models loaded")
             self._loaded = True
             return True
-        except Exception:  # noqa: BLE001 — load failure is recoverable
+        except Exception as exc:  # noqa: BLE001 — load failure is recoverable
+            if is_fatal(exc):
+                raise
             logger.exception("model loading failed")
             return False
 
+    def _load_ecapa(self):
+        """``{model_dir}/embedding/embedding_model.ckpt`` (speechbrain) or a
+        seeded random init."""
+        import os
+        from clearconverse_tpu_torch.models import ecapa
+        from clearconverse_tpu_torch.models.convert import load_torch_state_dict
+        ckpt = os.path.join(self.model_dir, "embedding", "embedding_model.ckpt")
+        if os.path.exists(ckpt):
+            try:
+                tree = ecapa.convert_speechbrain_ecapa(load_torch_state_dict(ckpt))
+                self._ecapa_dims = ecapa.infer_ecapa_dims(tree)
+                self.load_source["ecapa"] = "checkpoint"
+                return ecapa.ecapa_from_jax_params(tree, self.device)
+            except Exception as exc:  # noqa: BLE001 — init fallback, as the JAX bundle
+                if is_fatal(exc):
+                    raise
+                logger.warning("ecapa ckpt load failed (%s); using init", exc)
+        self.load_source["ecapa"] = "random_init"
+        return ecapa.init_ecapa(self._ecapa_dims or ecapa.EcapaDims(),
+                                seed=2, device=self.device)
+
+    def _load_pyannet(self):
+        """``{model_dir}/segmentation/pytorch_model.bin`` (pyannote) or a
+        seeded random init."""
+        import os
+        from clearconverse_tpu_torch.models import pyannet
+        from clearconverse_tpu_torch.models.convert import load_torch_state_dict
+        ckpt = os.path.join(self.model_dir, "segmentation", "pytorch_model.bin")
+        if os.path.exists(ckpt):
+            try:
+                tree = pyannet.convert_pyannote_pyannet(load_torch_state_dict(ckpt))
+                self._pyannet_dims = pyannet.infer_pyannet_dims(tree)
+                self.load_source["pyannet"] = "checkpoint"
+                return pyannet.pyannet_from_jax_params(
+                    tree, self._pyannet_dims, self.device)
+            except Exception as exc:  # noqa: BLE001 — init fallback, as the JAX bundle
+                if is_fatal(exc):
+                    raise
+                logger.warning("pyannet ckpt load failed (%s); using init", exc)
+        self.load_source["pyannet"] = "random_init"
+        return pyannet.init_pyannet(self._pyannet_dims or pyannet.PyannetDims(),
+                                    seed=3, device=self.device)
+
     def _ensure(self):
-        """Load models lazily — called at the top of every compute method."""
+        """Probe the cancel gate, then load lazily — called at the top of
+        every compute method, so no device work starts for a cancelled
+        task."""
+        if self.should_cancel is not None and self.should_cancel():
+            raise ProcessingCancelled()
         if not self._loaded and not self.load_with_progress():
             raise RuntimeError("ModelBundle: model loading failed")
 
@@ -398,44 +484,28 @@ class ModelBundle:
         return (final_tokens, final_lens, sum_lp, nsp, final_avg, texts,
                 final_temp)
 
-    def transcribe_batch(self, audio, prompts: Sequence[str],
-                         temperature: float = 0.0,
-                         word_timestamps: bool = False):
-        """[B, T] padded 16 kHz segments (host array or StoreBatch) +
-        per-row prompt strings → texts: pad/trim → log-mel → encoder →
-        batched KV-cached decode on the bundle's device."""
-        if word_timestamps:
-            raise NotImplementedError(
-                "word timestamps (alignment) are not ported yet: ROADMAP.md "
-                "queue 1, slice 3")
-        self._ensure()
-        from clearconverse_tpu_torch.models import decoding as dec
-
-        cfg = self.torch_config
+    def _whisper_checked(self):
+        """(model, dims, tokenizer); multilingual models need a pinned
+        language until detection is ported."""
         model, dims, tok = self._whisper
-        sp = tok.specials
-        if not sp.english_only and cfg.language is None:
+        if not tok.specials.english_only and self.torch_config.language is None:
             raise NotImplementedError(
                 "language detection is not ported yet: ROADMAP.md queue 1, "
                 "slice 1 leftovers")
-        n_real = len(prompts)
-        rows = _row_bucket(n_real)
-        is_store = isinstance(audio, StoreBatch)
-        if rows > n_real:
-            audio = (audio.pad_rows(rows - n_real) if is_store else
-                     np.pad(np.asarray(audio), ((0, rows - n_real), (0, 0))))
-            prompts = list(prompts) + [""] * (rows - n_real)
-        if cfg.pad_to_full_window:
-            target = 30 * 16000
-        else:  # bucket-length windows: shorter encoder ctx, less cross-KV
-            target = min(-(-audio.shape[1] // 16000) * 16000, 30 * 16000)
-        if not is_store:
-            audio = torch.as_tensor(np.asarray(audio, np.float32),
-                                    device=self.device)
+        return model, dims, tok
 
-        toks, lens, max_p, sot_off = self._prompt_batch(prompts, tok, dims,
-                                                        timestamps=False)
-        suppress = self._suppress_ids(tok, timestamps=False)
+    def _decode_rows(self, timestamps: bool, sot_off: int, max_p: int,
+                     target: int):
+        """The device program of one fallback rung, for
+        ``_decode_with_fallback``: ``decode_rows(audio_rows, toks_rows,
+        lens_rows, temp, replicas)`` decodes host or StoreBatch rows padded
+        or trimmed to ``target`` samples, with timestamp tokens when
+        ``timestamps``."""
+        from clearconverse_tpu_torch.models import decoding as dec
+        cfg = self.torch_config
+        model, dims, tok = self._whisper
+        sp = tok.specials
+        suppress = self._suppress_ids(tok, timestamps=timestamps)
 
         def decode_rows(audio_rows, toks_rows, lens_rows, temp: float,
                         replicas: int = 1):
@@ -452,6 +522,7 @@ class ModelBundle:
                 cross_kv_bits=cfg.cross_kv_bits,
                 self_kv_bits=cfg.self_kv_bits,
                 no_speech_token=sp.no_speech, sot_from_end=sot_off,
+                timestamps=timestamps, timestamp_begin=sp.timestamp_begin,
                 replicas=replicas)
             gen = None
             if temp > 0:
@@ -473,6 +544,40 @@ class ModelBundle:
                         self._put(lens_rows), dims, opts, max_p, gen,
                         target_len=target, timer=self.decode_timer)
                 return _unpack_decode(out, opts.max_tokens)
+        return decode_rows
+
+    def transcribe_batch(self, audio, prompts: Sequence[str],
+                         temperature: float = 0.0,
+                         word_timestamps: bool = False):
+        """[B, T] padded 16 kHz segments (host array or StoreBatch) +
+        per-row prompt strings → texts: pad/trim → log-mel → encoder →
+        batched KV-cached decode on the bundle's device."""
+        if word_timestamps:
+            raise NotImplementedError(
+                "word timestamps (alignment) are not ported yet: ROADMAP.md "
+                "queue 1, slice 3")
+        self._ensure()
+        cfg = self.torch_config
+        _, dims, tok = self._whisper_checked()
+        sp = tok.specials
+        n_real = len(prompts)
+        rows = _row_bucket(n_real)
+        is_store = isinstance(audio, StoreBatch)
+        if rows > n_real:
+            audio = (audio.pad_rows(rows - n_real) if is_store else
+                     np.pad(np.asarray(audio), ((0, rows - n_real), (0, 0))))
+            prompts = list(prompts) + [""] * (rows - n_real)
+        if cfg.pad_to_full_window:
+            target = 30 * 16000
+        else:  # bucket-length windows: shorter encoder ctx, less cross-KV
+            target = min(-(-audio.shape[1] // 16000) * 16000, 30 * 16000)
+        if not is_store:
+            audio = torch.as_tensor(np.asarray(audio, np.float32),
+                                    device=self.device)
+
+        toks, lens, max_p, sot_off = self._prompt_batch(prompts, tok, dims,
+                                                        timestamps=False)
+        decode_rows = self._decode_rows(False, sot_off, max_p, target)
 
         (final_tokens, final_lengths, _sum_lp, nsp, final_avg,
          texts, _ftemp) = self._decode_with_fallback(
@@ -488,16 +593,245 @@ class ModelBundle:
                 final_lengths[i] = 0
         return texts[:n_real]
 
-    transcribe_long_batch = _not_ported(
-        "transcribe_long_batch", "slice 1 leftovers (timestamp decoding)")
+    def transcribe_long_batch(self, audio, prompts: Sequence,
+                              lengths: Optional[np.ndarray] = None,
+                              temperature: float = 0.0):
+        """One ≤30 s window per row of a longer segment → [(text,
+        advance_seconds, reset_context, ctx_tokens)]: whisper transcribe's
+        timestamp-driven seek (reached via back/api.py:1474-1480).
+
+        Each window decodes with timestamp tokens. Per row: the text up to
+        the last complete <ts>text<ts> segment, and the cursor advance = that
+        segment's end; the dropped tail re-decodes in the caller's next
+        window. A row ending in a lone timestamp (or with no complete pair,
+        or a sub-second advance) keeps all text and advances the whole
+        window. ``ctx_tokens`` are the kept ids, timestamps included (the
+        caller chains the next window's prompt from them); a skipped silent
+        window gives []. ``reset_context`` is whisper's prompt-reset rule:
+        conditioning is off, or the kept result decoded hotter than 0.5."""
+        self._ensure()
+        cfg = self.torch_config
+        _, dims, tok = self._whisper_checked()
+        sp = tok.specials
+        is_store = isinstance(audio, StoreBatch)
+        if not is_store:
+            audio = np.asarray(audio, np.float32)
+        n_real = len(prompts)
+        if lengths is None:
+            lengths = (audio.lens[:n_real] if is_store
+                       else np.full(n_real, audio.shape[1], np.int64))
+        window_s = np.minimum(np.asarray(lengths) / 16000.0, 30.0)
+        rows = _row_bucket(n_real)
+        if rows > n_real:
+            audio = (audio.pad_rows(rows - n_real) if is_store else
+                     np.pad(audio, ((0, rows - n_real), (0, 0))))
+            prompts = list(prompts) + [""] * (rows - n_real)
+        if not is_store:
+            audio = self._put(audio)
+        toks, plens, max_p, sot_off = self._prompt_batch(prompts, tok, dims,
+                                                         timestamps=True)
+        decode_rows = self._decode_rows(True, sot_off, max_p, 30 * 16000)
+
+        def win_text(tk: np.ndarray, n: int) -> str:
+            # The quality gate judges the window's text without timestamps.
+            return tok.decode([t for t in tk[:n].tolist() if t < sp.eot])
+
+        (final_tokens, final_lens, _sum_lp, nsp, final_avg,
+         _texts, final_temp) = self._decode_with_fallback(
+            decode_rows, audio, toks, plens, temperature, n_real,
+            text_of=win_text, eot=sp.eot)
+
+        precision = 0.02
+        tsb = sp.timestamp_begin
+        cond_prev = bool(self.config.condition_on_previous_text)
+        results = []
+        for i in range(n_real):
+            reset = (not cond_prev) or float(final_temp[i]) > 0.5
+            seq = final_tokens[i, : final_lens[i]].tolist()
+            win = float(window_s[i])
+            if nsp[i] > cfg.no_speech_threshold and \
+                    final_avg[i] <= cfg.logprob_threshold:
+                # Silent window: whisper's seek loop skips it before its
+                # prompt-reset statement, so it neither resets the rolling
+                # prompt nor adds tokens to it.
+                results.append(("", win, False, []))
+                continue
+            is_ts = [t >= tsb for t in seq]
+            single_ending = len(seq) >= 2 and not is_ts[-2] and is_ts[-1] \
+                or len(seq) == 1 and is_ts[-1]
+            pairs = [j + 1 for j in range(len(seq) - 1)
+                     if is_ts[j] and is_ts[j + 1]]
+            if pairs and not single_ending:
+                last_slice = pairs[-1]
+                kept = seq[:last_slice]
+                advance = (seq[last_slice - 1] - tsb) * precision
+                if advance < 1.0:
+                    # A sub-second seek would re-decode the same window
+                    # forever: keep everything and advance the whole window.
+                    kept = seq
+                    advance = win
+            else:
+                kept = seq
+                advance = win
+            text = tok.decode([t for t in kept if t < sp.eot])
+            results.append((text, float(min(advance, win)), reset,
+                            [int(t) for t in kept]))
+        return results
+
+    # ------------------------------------------------------- speaker half
+    def _ecapa_model(self):
+        from clearconverse_tpu_torch.models.ecapa import EcapaDims
+        return self._ecapa, self._ecapa_dims or EcapaDims()
+
+    @torch.no_grad()
+    def embed_batch(self, audio, lengths: Optional[np.ndarray] = None
+                    ) -> np.ndarray:
+        """[B, T] (padded) → [B, D] speaker embeddings."""
+        self._ensure()
+        from clearconverse_tpu_torch.models.ecapa import ecapa_embed
+        audio = np.asarray(audio, np.float32)
+        if lengths is None:
+            lengths = np.full(audio.shape[0], audio.shape[1], np.int64)
+        (audio, lengths), n_real = _pad_rows([audio, lengths], [0, 1])
+        params, dims = self._ecapa_model()
+        with self._stage_timer.stage("embed_dev"):
+            return _host(ecapa_embed(params, self._put(audio),
+                                     self._put(lengths), dims))[:n_real]
+
+    @torch.no_grad()
+    def embed_denoised_batch(self, audio, lengths: np.ndarray,
+                             prop_decrease: float, sr: int = 16000
+                             ) -> np.ndarray:
+        """[B, T] raw padded clips → [B, D] embeddings of their
+        spectral-gated, peak-normalized versions, gate and embed on the
+        device in one call."""
+        self._ensure()
+        (audio, lengths), n_real = _pad_rows(
+            [np.asarray(audio, np.float32), lengths], [0, 1])
+        with self._stage_timer.stage("embed_dev"):
+            emb, _ = self._gate_embed(self._put(audio), self._put(lengths),
+                                      prop_decrease, sr, with_var=False)
+            return _host(emb)[:n_real]
+
+    def _gate_embed(self, audio: torch.Tensor, lens: torch.Tensor,
+                    prop_decrease: float, sr: int, with_var: bool):
+        """Gate + peak-normalize + embed of [B, T] rows with ``lens`` valid
+        samples; with ``with_var`` also the population variance of each raw
+        row's valid part."""
+        from clearconverse_tpu_torch.audio.denoise import (
+            peak_normalize, spectral_gate, valid_mask)
+        from clearconverse_tpu_torch.models.ecapa import ecapa_embed
+        params, dims = self._ecapa_model()
+        mask = valid_mask(audio.shape[1], lens)
+        clean = peak_normalize(spectral_gate(audio, sr, prop_decrease, mask))
+        emb = ecapa_embed(params, clean, lens, dims)
+        if not with_var:
+            return emb, None
+        lf = lens.to(torch.float32)
+        mean = (audio * mask).sum(dim=-1) / lf
+        var = (((audio - mean[:, None]) * mask) ** 2).sum(dim=-1) / lf
+        return emb, var
+
+    @torch.no_grad()
+    def segment_frames(self, audio) -> np.ndarray:
+        """[B, T] window chunks → [B, F, 3] per-frame speaker activities."""
+        self._ensure()
+        (audio,), n_real = _pad_rows([np.asarray(audio, np.float32)], [0])
+        with self._stage_timer.stage("segment_dev"):
+            return _host(self._segment(self._put(audio)))[:n_real]
+
+    def _segment(self, audio: torch.Tensor) -> torch.Tensor:
+        from clearconverse_tpu_torch.models.pyannet import (
+            PyannetDims, powerset_to_multilabel, pyannet_forward)
+        dims = self._pyannet_dims or PyannetDims()
+        return powerset_to_multilabel(pyannet_forward(self._pyannet, audio,
+                                                      dims))
+
+    def _store_args(self, rows, starts, lens):
+        (rows, starts, lens), n_real = _pad_rows(
+            [np.asarray(rows, np.int32), np.asarray(starts, np.int32),
+             np.asarray(lens, np.int32)], [0, 0, 1])
+        return self._put(rows), self._put(starts), self._put(lens), n_real
+
+    @torch.no_grad()
+    def embed_store(self, store: AudioStore, rows, starts, lens,
+                    bucket: int) -> np.ndarray:
+        """embed_batch over windows gathered on the device from the store."""
+        self._ensure()
+        from clearconverse_tpu_torch.models.decoding import gather_windows
+        from clearconverse_tpu_torch.models.ecapa import ecapa_embed
+        r, s, ln, n_real = self._store_args(rows, starts, lens)
+        params, dims = self._ecapa_model()
+        with self._stage_timer.stage("embed_dev"):
+            audio = gather_windows(store.dev, r, s, ln, bucket)
+            return _host(ecapa_embed(params, audio, ln, dims))[:n_real]
+
+    @torch.no_grad()
+    def embed_frames_store(self, store: AudioStore, rows, fstarts, totals,
+                           frame: int, pad: int) -> np.ndarray:
+        """embed_batch over non-contiguous clips assembled on the device:
+        clip i concatenates ``frame``-sample windows of store row rows[i] at
+        offsets fstarts[i, :] (diarization's exclusive-frame clips,
+        pipeline/diarize._carve_subsegments), cut to ``pad`` samples with
+        ``totals[i]`` valid."""
+        self._ensure()
+        from clearconverse_tpu_torch.models.ecapa import ecapa_embed
+        (rows, fstarts, totals), n_real = _pad_rows(
+            [np.asarray(rows, np.int32), np.asarray(fstarts, np.int32),
+             np.asarray(totals, np.int32)], [0, 0, 1])
+        params, dims = self._ecapa_model()
+        frame, pad = int(frame), int(pad)
+        with self._stage_timer.stage("embed_dev"):
+            dev = store.dev
+            r = self._put(rows).long().clamp(0, dev.shape[0] - 1)
+            s = self._put(fstarts).long().clamp(0, dev.shape[1] - frame)
+            idx = s[:, :, None] + torch.arange(frame, device=dev.device)
+            clips = dev[r[:, None, None], idx].reshape(len(rows), -1)[:, :pad]
+            if clips.shape[1] < pad:       # fstarts under-provisioned
+                clips = F.pad(clips, (0, pad - clips.shape[1]))
+            tot = self._put(totals)
+            mask = (torch.arange(pad, device=dev.device)[None, :]
+                    < tot[:, None]).to(clips.dtype)
+            return _host(ecapa_embed(params, clips * mask, tot, dims))[:n_real]
+
+    @torch.no_grad()
+    def embed_denoised_store(self, store: AudioStore, rows, starts, lens,
+                             prop_decrease: float, bucket: int,
+                             with_var: bool = False):
+        """gather + spectral gate + peak-norm + embed over store windows
+        (profile building). ``with_var`` also returns each raw window's
+        population variance, the profile weight, so the host never reads
+        the (possibly still downloading) audio."""
+        self._ensure()
+        from clearconverse_tpu_torch.models.decoding import gather_windows
+        r, s, ln, n_real = self._store_args(rows, starts, lens)
+        with self._stage_timer.stage("embed_dev"):
+            audio = gather_windows(store.dev, r, s, ln, bucket)
+            emb, var = self._gate_embed(audio, ln, prop_decrease, store.sr,
+                                        with_var)
+            if with_var:
+                return _host(emb)[:n_real], _host(var)[:n_real]
+            return _host(emb)[:n_real]
+
+    @torch.no_grad()
+    def segment_frames_store(self, store: AudioStore, rows, starts,
+                             window: int) -> np.ndarray:
+        """segment_frames over windows gathered on the device: [(row,
+        start)] × a fixed window → [B, F, 3]. The store's zero tail gives
+        the host version's zero-padded final windows."""
+        self._ensure()
+        from clearconverse_tpu_torch.models.decoding import gather_windows
+        r, s, ln, n_real = self._store_args(rows, starts,
+                                            np.full(len(rows), window))
+        with self._stage_timer.stage("segment_dev"):
+            audio = gather_windows(store.dev, r, s, ln, window)
+            return _host(self._segment(audio))[:n_real]
+
+    @property
+    def frame_hop_seconds(self) -> float:
+        from clearconverse_tpu_torch.models.pyannet import PyannetDims
+        return (self._pyannet_dims or PyannetDims()).frame_hop_seconds
+
     save_native = _not_ported("save_native", "slice 1 leftovers")
     load_native = _not_ported("load_native", "slice 1 leftovers")
-    embed_batch = _not_ported("embed_batch", "slice 2")
-    embed_denoised_batch = _not_ported("embed_denoised_batch", "slice 2")
-    embed_store = _not_ported("embed_store", "slice 2")
-    embed_frames_store = _not_ported("embed_frames_store", "slice 2")
-    embed_denoised_store = _not_ported("embed_denoised_store", "slice 2")
-    segment_frames = _not_ported("segment_frames", "slice 2")
-    segment_frames_store = _not_ported("segment_frames_store", "slice 2")
-    frame_hop_seconds = _not_ported("frame_hop_seconds", "slice 2")
-    separate_batch = _not_ported("separate_batch", "slice 3")
+    separate_batch = _not_ported("separate_batch", "slice 3 (models/resepformer)")

@@ -175,9 +175,8 @@ def test_sampling_rung_uses_best_of_replicas(bundles):
     assert len(texts) == 1 and isinstance(texts[0], str)
 
 
-@pytest.mark.parametrize("method", ["transcribe_long_batch", "embed_batch",
-                                    "segment_frames", "separate_batch",
-                                    "save_native"])
+@pytest.mark.parametrize("method", ["separate_batch", "save_native",
+                                    "load_native"])
 def test_unported_methods_name_their_roadmap_item(bundles, method):
     _, tb = bundles
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

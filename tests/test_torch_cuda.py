@@ -224,3 +224,84 @@ def test_tiny_transcription_card_matches_cpu(cuda):
     assert torch.equal(results["cuda"][1], results["cpu"][1])
     assert k1.mel_power.launches > counts[0]
     assert k2.encoder_attention.launches > counts[1]
+
+
+# ------------------------------------------- the engine's default pass
+
+def _speaker_bundle(dev):
+    """Full-width ECAPA and PyanNet from fixed seeds (the same numbers on
+    every device), the gate's tolerances below are the CPU parity tests'."""
+    from clearconverse_tpu_torch.models.ecapa import EcapaDims, init_ecapa
+    from clearconverse_tpu_torch.models.pyannet import PyannetDims, init_pyannet
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    b = ModelBundle(device=dev)
+    b._ecapa, b._ecapa_dims = init_ecapa(EcapaDims(), 2, dev), EcapaDims()
+    b._pyannet, b._pyannet_dims = init_pyannet(PyannetDims(), 3, dev), \
+        PyannetDims()
+    b._loaded = True
+    return b
+
+
+def test_gate_on_card_matches_cpu(cuda):
+    """The packed wire's gate (unpack + spectral gate + normalize) on the
+    card against the CPU on the same int16 batch: within 2e-5, int16
+    download within one step."""
+    from clearconverse_tpu_torch.audio import denoise, pack
+    rng = np.random.default_rng(11)
+    t = np.arange(3 * 16000) / 16000
+    q = np.zeros((2, t.size), np.int16)
+    for row, f in enumerate((180.0, 260.0)):
+        q[row] = np.round(9000 * np.sin(2 * np.pi * f * t)
+                          + rng.standard_normal(t.size) * 200)
+    n_valid = np.array([t.size, 30000], np.int32)
+    q[1, 30000:] = 0
+    pb = pack.pack_i16_batch(q.copy(), n_valid, allow_numpy=True)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        args = [torch.from_numpy(a).to(dev) for a in (pb.data, pb.x0, pb.e1)]
+        y, qo = denoise.gate_normalize_packed(
+            *args, pb.order == 2, 0.5, torch.from_numpy(n_valid).to(dev),
+            width=pb.width)
+        out.append((y.cpu().numpy(), qo.cpu().numpy().astype(np.int32)))
+    (y_card, q_card), (y_cpu, q_cpu) = out
+    np.testing.assert_allclose(y_card, y_cpu, atol=2e-5)
+    assert np.abs(q_card - q_cpu).max() <= 1
+
+
+def test_store_embeddings_equal_host_on_card(cuda):
+    """Full-width ECAPA on the card: embed_store, embed_frames_store and
+    embed_denoised_store equal their host versions (tests/test_store.py's
+    rtol 1e-5 / atol 1e-6), and the card agrees with the CPU within 1e-4."""
+    rng = np.random.default_rng(12)
+    files = [rng.standard_normal(6 * 16000).astype(np.float32) * 0.1,
+             rng.standard_normal(5 * 16000).astype(np.float32) * 0.1]
+    rows, starts, lens = [0, 1, 1], [1000, 0, 30000], [16000, 12000, 7000]
+    host = np.zeros((3, 16000), np.float32)
+    for k, (r, s, n) in enumerate(zip(rows, starts, lens)):
+        host[k, :n] = files[r][s: s + n]
+    fr, pad = 270, 3 * 16000
+    fstarts = np.zeros((1, -(-pad // fr)), np.int32)
+    fstarts[0, :10] = np.arange(0, 40, 4) * fr
+    clip = np.concatenate([files[0][s: s + fr] for s in fstarts[0, :10]])
+    fhost = np.zeros((1, pad), np.float32)
+    fhost[0, : clip.size] = clip
+    embs = []
+    for dev in (cuda, torch.device("cpu")):
+        b = _speaker_bundle(dev)
+        batch = np.zeros((2, files[0].size), np.float32)
+        batch[1, : files[1].size] = files[1]
+        batch[0] = files[0]
+        store = b.make_store(batch, 16000)
+        kw = dict(rtol=1e-5, atol=1e-6)
+        e = b.embed_store(store, rows, starts, lens, 16000)
+        np.testing.assert_allclose(e, b.embed_batch(host, np.array(lens)), **kw)
+        d, var = b.embed_denoised_store(store, rows, starts, lens, 0.5, 16000,
+                                        with_var=True)
+        np.testing.assert_allclose(
+            d, b.embed_denoised_batch(host, np.array(lens), 0.5), **kw)
+        f = b.embed_frames_store(store, [0], fstarts, [clip.size], fr, pad)
+        np.testing.assert_allclose(f, b.embed_batch(fhost, [clip.size]), **kw)
+        s = b.segment_frames_store(store, [0, 1], [0, 0], 5 * 16000)
+        embs.append((e, d, f, var, s))
+    for a, c in zip(*embs):
+        np.testing.assert_allclose(a, c, rtol=1e-4, atol=1e-4)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of clearconverse_tpu_torch/ (nor
-chip_smoke.py) imports jax or the JAX package, and a tiny transcription
-runs in a process where both are refused at import."""
+chip_smoke.py) imports jax or the JAX package, and a tiny transcription and
+the engine's default pass on one short file run in a process where both are
+refused at import."""
 
 import ast
 import os
@@ -76,6 +77,26 @@ _SCRIPT = textwrap.dedent("""
     texts += b.transcribe_batch(StoreBatch(store, [1], [0], [16000], 16000),
                                 [""], temperature=0.0)
     assert len(texts) == 3
+
+    # The engine's default pass on one short file: load and gate, PyanNet
+    # segmentation (the crafted weights), ECAPA diarization and profiles,
+    # the decode wavefront.
+    import os, tempfile
+    from clearconverse_tpu_torch.audio.wav import write_wav
+    from clearconverse_tpu_torch.models.ecapa import EcapaDims, init_ecapa
+    from clearconverse_tpu_torch.pipeline.dev_backend import (
+        craft_pyannet_freq_params, synth_conversation)
+    from clearconverse_tpu_torch.pipeline.engine import TranscriptionEngine
+    edims = EcapaDims(n_mels=24, channels=32, mfa_channels=48,
+                      attention_channels=16, embedding_dim=16,
+                      res2net_scale=4)
+    b._ecapa, b._ecapa_dims = init_ecapa(edims, 1, "cpu"), edims
+    b._pyannet, b._pyannet_dims = craft_pyannet_freq_params(device="cpu")
+    path = os.path.join(tempfile.mkdtemp(), "short.wav")
+    write_wav(path, synth_conversation()[: 9 * 16000], 16000)
+    eng = TranscriptionEngine(torch_config=b.torch_config, models=b)
+    res, = eng.process_files([path])
+    assert res is not None and res["segments"], res
     leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "clearconverse_tpu" or m.startswith("clearconverse_tpu.")]
     assert not leaked, leaked
