@@ -33,12 +33,39 @@ Phases, each fatal on failure:
                small.en-width Whisper, f32, t=0: process_files on one 12 s
                file on the card and on the CPU; identical segments, labels and
                texts, embeddings within 1e-4.
+  7. overlap — process_files on 8 WAV files of 60 s (synth_conversation()
+               tiled five times, L+H overlap in every repeat) at full width:
+               Whisper small.en with the default knobs (64 tokens, one
+               rung), RE-SepFormer at SepformerDims(), ECAPA at EcapaDims(),
+               the crafted frequency-selective PyanNet at PyannetDims(); one
+               cold and two timed passes: RTFx, the stage split with
+               overlap_reseg / separation / separate_dev, separation rows per
+               batch, peak memory (the pass's and the separation calls'),
+               one separation call's split (its intra-chunk attention
+               against the whole call), K1/K2 launches. It fails on a file
+               without an is_overlap segment, separate_batch never running,
+               a None file, an ERROR record of the port, or K1/K2 not
+               launching.
+               Then one transcribe_batch(word_timestamps=True) at full width:
+               every word inside [0, 30] s with start <= end, starts in order;
+  8. overlap card vs CPU — separate_batch at SepformerDims() on 3 rows at
+               the 5 s bucket within rtol 1e-3 / atol 1e-4; process_files on
+               24 s of synth_conversation() (crafted PyanNet, seeded ECAPA,
+               full RE-SepFormer, 2-layer small.en-width Whisper f32 t=0):
+               identical segments, overlap flags, labels and texts; word
+               timestamps: identical words, times within one 0.02 s frame;
+  9. serve   — the port's create_app on 127.0.0.1 with phase 7's engine:
+               upload a WAV with overlaps, POST /transcribe/{id}, read
+               /ws/progress/{id} to its end, GET /transcription/{id} and
+               /download-pdf/{id}; it fails on a non-200, an error marker or
+               a transcript without a [SPEAKER_ line.
 Then it prints the kernels JSON line, the card's name and power limit, and,
 last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
-(--profile also traces one transcribe_batch call and one engine pass with
-torch.profiler: kernel time by name and the card's busy share.)
+(--profile also traces one transcribe_batch call, one engine pass and one
+overlap pass with torch.profiler: kernel time by name and the card's busy
+share.)
 Without a CUDA card it exits non-zero and prints no result.
 """
 
@@ -665,13 +692,7 @@ def phase_engine_parity():
     tc = TorchConfig(compute_dtype="float32", cross_kv_bits=16,
                      max_decode_tokens=32, diarization_onset=0.35,
                      diarization_offset=0.25)
-    cpu_whisper = init_whisper(dims, seed=1, device="cpu")
-    # Every row of the token table but the 256 byte ids and EOT shrinks
-    # 100x, so the decode emits bytes the byte-fallback tokenizer renders
-    # as text, and the no-speech gate (which would blank it) stays shut.
-    with torch.no_grad():
-        cpu_whisper.decoder.tok[256:50256] *= 0.01
-        cpu_whisper.decoder.tok[50257:] *= 0.01
+    cpu_whisper = byte_text(init_whisper(dims, seed=1, device="cpu"))
     outs = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "conversation.wav")
@@ -722,11 +743,542 @@ def phase_engine_parity():
             "embedding_calls": n_emb, "max_embedding_err": emb_err}
 
 
+def byte_text(model):
+    """Every row of a random Whisper's token table but the 256 byte ids and
+    EOT shrinks 100x, so the decode emits bytes the byte-fallback tokenizer
+    renders as text, and the no-speech gate (which would blank it) stays
+    shut. Returns the model."""
+    with torch.no_grad():
+        model.decoder.tok[256:50256] *= 0.01
+        model.decoder.tok[50257:] *= 0.01
+    return model
+
+
+def overlap_wav(path: str, repeats: int, scale: float = 1.0) -> None:
+    """synth_conversation() (L, H, L, then L+H overlapping) tiled."""
+    from clearconverse_tpu_torch.audio.wav import write_wav
+    from clearconverse_tpu_torch.pipeline.dev_backend import synth_conversation
+    write_wav(path, np.tile(synth_conversation(), repeats) * scale, SR)
+
+
+# Phase 7's pipeline settings. min_speakers=2: seeded ECAPA embeds the
+# stationary tones by their onsets as much as by their bands, and only two
+# forced clusters split the speakers (PERF.md §4).
+OVERLAP_CONFIG = dict(noise_reduction_amount=0.2, min_speakers=2)
+
+
+def overlap_engine(device="cuda"):
+    """Phase 7's engine: weights from ./models where present, else seeded
+    at full width; the crafted frequency-selective PyanNet at PyannetDims()
+    unless a PyanNet checkpoint was loaded; a random Whisper gets byte_text
+    so transcripts have text."""
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.models.pyannet import PyannetDims
+    from clearconverse_tpu_torch.pipeline.dev_backend import (
+        craft_pyannet_freq_params)
+    from clearconverse_tpu_torch.pipeline.engine import TranscriptionEngine
+
+    tc = TorchConfig(diarization_onset=0.35, diarization_offset=0.25,
+                     max_decode_tokens=64, max_fallback_attempts=1)
+    eng = TranscriptionEngine(Config(**OVERLAP_CONFIG), tc,
+                              model_dir="./models", device=device,
+                              load_models_immediately=True)
+    if not eng.models_are_loaded():
+        raise SystemExit("overlap: model load failed")
+    b = eng.models
+    if b.load_source["pyannet"] == "random_init":
+        b._pyannet, b._pyannet_dims = craft_pyannet_freq_params(
+            PyannetDims(), device=device)
+        b.load_source["pyannet"] = "crafted"
+    if b.load_source["whisper"] == "random_init":
+        byte_text(b._whisper[0])
+    return eng
+
+
+def check_words(words, label: str) -> int:
+    """0 <= start <= end <= 30 for every word, starts in order per row;
+    returns the word count."""
+    for row in words:
+        starts = [w["start"] for w in row]
+        if starts != sorted(starts) or not all(
+                0.0 <= w["start"] <= w["end"] <= 30.0 for w in row):
+            raise SystemExit(f"{label}: word times out of order or range: "
+                             f"{row[:5]}")
+    return sum(len(r) for r in words)
+
+
+def separation_split(model, rows: int):
+    """Device time of one sepformer_separate call on ``rows`` rows of 5 s
+    (the engine's separation batch) against its intra-chunk attention
+    (softmax(QKᵀ)V of one layer at the call's shapes, times the intra
+    layers), and the call's own peak memory, by CUDA events."""
+    from clearconverse_tpu_torch.models import resepformer as rsf
+    from clearconverse_tpu_torch.utils.precision import full_f32
+    dims = model.dims
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mix = torch.randn((rows, 5 * SR), generator=gen, device="cuda") * 0.1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    call_ms = time_ms(lambda: rsf.sepformer_separate(model, mix), iters=3,
+                      warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    frames = (5 * SR - dims.enc_kernel) // dims.enc_stride + 1
+    chunks, _ = rsf._chunk(torch.zeros((1, frames, 1), device="cuda"),
+                           dims.chunk_size)
+    n_seq = rows * chunks.shape[1]
+    dh = dims.d_model // dims.n_heads
+    q, k, v = (torch.randn((n_seq, dims.n_heads, dims.chunk_size, dh),
+                           generator=gen, device="cuda") for _ in range(3))
+    x = torch.randn((n_seq, dims.chunk_size, dims.d_model), generator=gen,
+                    device="cuda")
+    layer = model.masknet.repeats[0].intra[0]
+    with full_f32():
+        attn_ms = time_ms(lambda: torch.matmul(torch.softmax(
+            torch.matmul(q * dh ** -0.5, k.transpose(-1, -2)), dim=-1), v),
+            iters=5)
+        layer_ms = time_ms(lambda: rsf._tf_forward(x, [layer], dims.n_heads),
+                           iters=5)
+    n_intra = dims.n_repeats * dims.n_intra_layers
+    out = {"rows": rows, "call_ms": call_ms, "peak_mem_gb": peak_gb,
+           "intra_sequences": n_seq, "attention_core_ms": attn_ms,
+           "intra_layer_ms": layer_ms,
+           "intra_attention_share": n_intra * attn_ms / call_ms,
+           "intra_layers_share": n_intra * layer_ms / call_ms}
+    log(f"[overlap] one separation call, {rows} x 5 s: {call_ms:.2f} ms, peak "
+        f"{peak_gb:.2f} GB; {n_seq} intra sequences of {dims.chunk_size}: "
+        f"attention core {attn_ms:.2f} ms a layer, whole intra layer "
+        f"{layer_ms:.2f} ms; {n_intra} intra layers = "
+        f"{100 * out['intra_attention_share']:.1f} % (attention core) / "
+        f"{100 * out['intra_layers_share']:.1f} % (layers) of the call")
+    return out
+
+
+def phase_overlap(profile: bool):
+    """The overlap path at full width through process_files; then one
+    word-timestamp transcription call. Returns (report, engine)."""
+    from clearconverse_tpu_torch.audio.wav import read_wav
+    from clearconverse_tpu_torch.ops import encoder_attention as k2
+    from clearconverse_tpu_torch.ops import logmel as k1
+    from clearconverse_tpu_torch.pipeline.bundle import _row_bucket
+
+    errors = _Errors()
+    port_log = logging.getLogger("clearconverse_tpu_torch")
+    port_log.addHandler(errors)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = [os.path.join(tmp, f"overlap_{i}.wav") for i in range(8)]
+            for i, path in enumerate(paths):
+                # Scaled 1 % apart, so no two files are the same.
+                overlap_wav(path, 5, 1.0 + 0.01 * i)
+            file_s = read_wav(paths[0])[0].shape[1] / SR
+            audio_s = file_s * len(paths)
+            t0 = time.perf_counter()
+            eng = overlap_engine()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            b = eng.models
+            log(f"[overlap] weights {b.load_source}, sepformer "
+                f"{b._sepformer.dims}, config {OVERLAP_CONFIG}, knobs "
+                f"{eng.torch_config}, loaded in {load_s:.1f} s")
+            calls, sep_rows, peaks = {}, [], {"pass": 0, "separation": 0}
+            for name in ("transcribe_batch", "transcribe_long_batch"):
+                _count_calls(b, name, calls)
+            separate = b.separate_batch
+
+            def counted_separate(audio):
+                """Counts the call and its rows, and takes its own peak
+                device memory (the pass's peak so far is kept first)."""
+                calls["separate_batch"] = calls.get("separate_batch", 0) + 1
+                sep_rows.append((len(audio), _row_bucket(len(audio)),
+                                 int(np.shape(audio)[1])))
+                peaks["pass"] = max(peaks["pass"],
+                                    torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                out = separate(audio)
+                peaks["separation"] = max(peaks["separation"],
+                                          torch.cuda.max_memory_allocated())
+                return out
+            b.separate_batch = counted_separate
+            k1.mel_power.launches = 0
+            k2.encoder_attention.launches = 0
+            passes = []
+            for label in ("cold", "timed 1", "timed 2"):
+                calls.clear()
+                sep_rows.clear()
+                peaks.update({"pass": 0, "separation": 0})
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                results = eng.process_files(paths)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                peak = max(peaks["pass"], torch.cuda.max_memory_allocated())
+                if any(r is None for r in results):
+                    raise SystemExit(f"overlap {label}: a file returned None")
+                segs = [r["segments"] for r in results]
+                overlaps = [sum(s.is_overlap for s in f) for f in segs]
+                if min(overlaps) == 0:
+                    raise SystemExit(f"overlap {label}: a file has no overlap "
+                                     f"segment: {overlaps}")
+                if not calls.get("separate_batch"):
+                    raise SystemExit(f"overlap {label}: separate_batch never ran")
+                for f in segs:
+                    for seg in f:
+                        if not (isinstance(seg.transcription, str)
+                                and np.isfinite(seg.audio).all()):
+                            raise SystemExit(f"overlap {label}: bad segment")
+                p = {"pass": label, "audio_s": audio_s, "wall_s": wall,
+                     "rtfx": audio_s / wall, "peak_mem_gb": peak / 1e9,
+                     "separation_peak_mem_gb": peaks["separation"] / 1e9,
+                     "segments_per_file": [len(f) for f in segs],
+                     "overlap_segments_per_file": overlaps,
+                     "separation_rows": list(sep_rows),
+                     "calls": dict(calls),
+                     "stage_times": dict(eng.last_run_stage_times),
+                     "text_chars": sum(len(seg.transcription)
+                                       for f in segs for seg in f)}
+                passes.append(p)
+                log(f"[overlap] {label}: {len(paths)} files x {file_s:.0f} s, "
+                    f"wall {wall:.3f} s, RTFx {p['rtfx']:.1f}, peak mem "
+                    f"{p['peak_mem_gb']:.2f} GB (separation calls "
+                    f"{p['separation_peak_mem_gb']:.2f} GB), segments per file "
+                    f"{p['segments_per_file']}, overlap segments "
+                    f"{overlaps}, separation (rows, padded rows, samples) "
+                    f"per call {p['separation_rows']}, bundle calls "
+                    f"{p['calls']}, transcript chars {p['text_chars']}")
+                split = ", ".join(f"{k} {v:.4f}" for k, v in
+                                  sorted(p["stage_times"].items()))
+                log(f"[overlap]   stage split (s): {split}")
+            launches = {"mel_power": k1.mel_power.launches,
+                        "encoder_attention": k2.encoder_attention.launches}
+            log(f"[overlap] kernel launches in the phase's three passes: "
+                f"{launches}")
+            if min(launches.values()) == 0:
+                raise SystemExit("overlap: a kernel was never launched")
+            prof = (profile_call(lambda: eng.process_files(paths),
+                                 passes[-1]["wall_s"], "overlap profile")
+                    if profile else None)
+            sep_split = separation_split(b._sepformer,
+                                         passes[-1]["separation_rows"][0][1])
+
+            # One word-timestamp call at full width: 8 rows of 6 s.
+            wave = read_wav(paths[0])[0][0]
+            rows = np.stack([wave[i * 6 * SR:(i + 1) * 6 * SR]
+                             for i in range(8)]).astype(np.float32)
+            k1.mel_power.launches = 0
+            k2.encoder_attention.launches = 0
+            t0 = time.perf_counter()
+            texts, words = b.transcribe_batch(rows, ["a conversation"] * 8,
+                                              temperature=0.0,
+                                              word_timestamps=True)
+            torch.cuda.synchronize()
+            align_wall = time.perf_counter() - t0
+            align_launches = {"mel_power": k1.mel_power.launches,
+                              "encoder_attention":
+                                  k2.encoder_attention.launches}
+            n_words = check_words(words, "overlap word timestamps")
+            log(f"[overlap] transcribe_batch(word_timestamps=True) on 8 x 6 s: "
+                f"{align_wall:.3f} s, words per row {[len(w) for w in words]}, "
+                f"first {words[0][:3]}, kernel launches {align_launches}")
+            if len(words) != 8 or (n_words == 0 and
+                                   b.load_source["whisper"] == "random_init"):
+                raise SystemExit("overlap: the word-timestamp call gave no words")
+            if min(align_launches.values()) == 0:
+                raise SystemExit("overlap: the alignment pass launched no kernel")
+    finally:
+        port_log.removeHandler(errors)
+    if errors.records:
+        raise SystemExit("overlap: the port logged errors: " + "; ".join(
+            r.getMessage() for r in errors.records[:5]))
+    b.separate_batch = separate
+    return ({"load_s": load_s, "passes": passes, "launches": launches,
+             "profile": prof, "separation_split": sep_split,
+             "align": {"wall_s": align_wall,
+                                        "words_per_row": [len(w) for w in words],
+                                        "launches": align_launches}}, eng)
+
+
+def sep_mixtures(rows: int = 3, seconds: int = 5) -> np.ndarray:
+    """Seeded two-tone mixtures with a little noise; the last row is silent
+    after 3 s."""
+    rng = np.random.default_rng(13)
+    t = np.arange(seconds * SR) / SR
+    tones = ((300, 2000), (180, 900), (250, 1500), (400, 1200))[:rows]
+    mix = np.stack([0.4 * np.sin(2 * np.pi * f0 * t)
+                    + 0.3 * np.sin(2 * np.pi * f1 * t)
+                    + 0.02 * rng.standard_normal(t.size) for f0, f1 in tones])
+    mix[-1, 3 * SR:] = 0.0
+    return mix.astype(np.float32)
+
+
+def phase_overlap_parity(devices=("cuda", "cpu")):
+    """separate_batch, process_files with overlaps and word timestamps on
+    the card and on the CPU with the same seeded weights."""
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.ecapa import EcapaDims, init_ecapa
+    from clearconverse_tpu_torch.models.pyannet import PyannetDims
+    from clearconverse_tpu_torch.models.resepformer import (
+        SepformerDims, init_sepformer)
+    from clearconverse_tpu_torch.models.tokenizer import ByteFallbackTokenizer
+    from clearconverse_tpu_torch.models.whisper import model_dims
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    from clearconverse_tpu_torch.pipeline.dev_backend import (
+        craft_pyannet_freq_params)
+    from clearconverse_tpu_torch.pipeline.engine import TranscriptionEngine
+
+    mix = sep_mixtures()
+    dims = dataclasses.replace(model_dims("small.en"), n_audio_layer=2,
+                               n_text_layer=2)
+    cpu_whisper = byte_text(init_whisper(dims, seed=1, device="cpu"))
+    cfg = Config(temperature=0.0, min_speakers=2)
+    tc = TorchConfig(compute_dtype="float32", cross_kv_bits=16,
+                     max_decode_tokens=32, diarization_onset=0.35,
+                     diarization_offset=0.25)
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "overlap_24s.wav")
+        overlap_wav(path, 2)
+        for dev in devices:
+            b = ModelBundle(cfg, tc, device=dev)
+            b._whisper = (copy.deepcopy(cpu_whisper).to(dev), dims,
+                          ByteFallbackTokenizer(english=True))
+            b._ecapa, b._ecapa_dims = init_ecapa(EcapaDims(), 2, dev), EcapaDims()
+            b._pyannet, b._pyannet_dims = craft_pyannet_freq_params(
+                PyannetDims(), device=dev)
+            b._sepformer = init_sepformer(SepformerDims(), seed=1, device=dev)
+            b._loaded = True
+            t0 = time.perf_counter()
+            sep = b.separate_batch(mix)
+            sep_wall = time.perf_counter() - t0
+            n_sep = [0]
+            separate = b.separate_batch
+
+            def counted(audio, _f=separate):
+                n_sep[0] += 1
+                return _f(audio)
+            b.separate_batch = counted
+            t0 = time.perf_counter()
+            res, = TranscriptionEngine(cfg, tc, models=b).process_files([path])
+            wall = time.perf_counter() - t0
+            if res is None:
+                raise SystemExit(f"overlap parity: the file returned None on {dev}")
+            rows = np.stack([np.tile(mix[0], 2)[: 8 * SR],
+                             np.tile(mix[1], 2)[: 8 * SR]])
+            texts, words = b.transcribe_batch(rows, ["a prompt", "more words"],
+                                              temperature=0.0,
+                                              word_timestamps=True)
+            outs[dev] = {"sep": sep, "sep_wall": sep_wall, "wall": wall,
+                         "calls": n_sep[0],
+                         "segments": [(s.start, s.end, s.speaker_id,
+                                       s.is_overlap, s.transcription)
+                                      for s in res["segments"]],
+                         "texts": texts, "words": words}
+    card, cpu = outs[devices[0]], outs[devices[1]]
+    sep_err = float(np.abs(card["sep"] - cpu["sep"]).max())
+    sep_ok = bool(np.all(np.abs(card["sep"] - cpu["sep"])
+                         <= 1e-4 + 1e-3 * np.abs(cpu["sep"])))
+    same = card["segments"] == cpu["segments"]
+    n_overlap = sum(seg[3] for seg in card["segments"])
+    same_words = ([[w["word"] for w in r] for r in card["words"]]
+                  == [[w["word"] for w in r] for r in cpu["words"]])
+    dt = max((max(abs(a["start"] - c["start"]), abs(a["end"] - c["end"]))
+              for ra, rc in zip(card["words"], cpu["words"])
+              for a, c in zip(ra, rc)), default=0.0)
+    n_words = check_words(card["words"], "overlap parity")
+    log(f"[overlap parity] separate_batch {mix.shape} at SepformerDims(): max "
+        f"err {sep_err:.3g} (rtol 1e-3 / atol 1e-4) -> "
+        f"{'ok' if sep_ok else 'FAIL'}; one call {card['sep_wall']:.3f} s on "
+        f"the card (cold), {cpu['sep_wall']:.3f} s on the CPU")
+    log(f"[overlap parity] 24 s file: segments {len(card['segments'])}, "
+        f"overlap segments {n_overlap}, separate_batch calls "
+        f"{card['calls']}/{cpu['calls']}, segments/flags/labels/texts "
+        f"identical {same}; wall card {card['wall']:.2f} s, CPU "
+        f"{cpu['wall']:.2f} s")
+    for seg in card["segments"]:
+        log(f"[overlap parity]   {seg[0]:.2f}-{seg[1]:.2f} {seg[2]} "
+            f"overlap={seg[3]} text={seg[4][:40]!r}")
+    log(f"[overlap parity] word timestamps: words {n_words}, identical "
+        f"{same_words}, max time difference {dt:.3g} s (<= 0.02), texts "
+        f"identical {card['texts'] == cpu['texts']}")
+    if not (sep_ok and same and n_overlap and card["calls"] and same_words
+            and dt <= 0.02 + 1e-9 and n_words
+            and card["texts"] == cpu["texts"]):
+        raise SystemExit("overlap parity: card and CPU disagree")
+    return {"sep_max_err": sep_err, "segments": card["segments"],
+            "identical": same, "overlap_segments": int(n_overlap),
+            "words": n_words, "max_word_time_diff_s": dt,
+            "sep_wall_s": {d: outs[d]["sep_wall"] for d in devices}}
+
+
+def _http(port: int, method: str, path: str, body: bytes = b"",
+          headers=None, timeout: float = 600.0):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def _ws_progress(port: int, task_id: str, timeout: float = 600.0):
+    """Every JSON message of /ws/progress/{task_id} up to progress 100."""
+    import base64
+    import socket
+    import struct
+    sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    try:
+        key = base64.b64encode(os.urandom(16)).decode()
+        sock.sendall((f"GET /ws/progress/{task_id} HTTP/1.1\r\nHost: localhost"
+                      f"\r\nUpgrade: websocket\r\nConnection: Upgrade\r\n"
+                      f"Sec-WebSocket-Key: {key}\r\n"
+                      f"Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            buf += sock.recv(4096)
+        head, _, buf = buf.partition(b"\r\n\r\n")
+        if b" 101 " not in head.split(b"\r\n")[0]:
+            raise SystemExit(f"serve: websocket upgrade refused: {head[:80]!r}")
+        msgs = []
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            while len(buf) < 2:
+                buf += sock.recv(4096)
+            op, n, off = buf[0] & 0x0F, buf[1] & 0x7F, 2
+            if n == 126:
+                while len(buf) < 4:
+                    buf += sock.recv(4096)
+                n, off = struct.unpack(">H", buf[2:4])[0], 4
+            while len(buf) < off + n:
+                buf += sock.recv(4096)
+            payload, buf = buf[off:off + n], buf[off + n:]
+            if op == 0x1:
+                msgs.append(json.loads(payload))
+                if msgs[-1].get("progress") == 100:
+                    return msgs
+            elif op == 0x8:
+                break
+        raise SystemExit(f"serve: websocket ended without progress 100: {msgs}")
+    finally:
+        sock.close()
+
+
+def phase_serve(eng):
+    """The port's app on 127.0.0.1 in front of phase 7's engine: one upload
+    with overlaps through the user's routes."""
+    import asyncio
+    import socket
+    import threading
+    from clearconverse_tpu_torch.ops import encoder_attention as k2
+    from clearconverse_tpu_torch.ops import logmel as k1
+    from clearconverse_tpu_torch.serve.app import create_app
+
+    errors = _Errors()
+    port_log = logging.getLogger("clearconverse_tpu_torch")
+    port_log.addHandler(errors)
+    loop = asyncio.new_event_loop()
+    stop = threading.Event()
+
+    async def run_server(app, port):
+        task = asyncio.ensure_future(app.serve("127.0.0.1", port))
+        while not stop.is_set() and not task.done():
+            await asyncio.sleep(0.05)
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+
+    thread = None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            app = create_app(os.path.join(tmp, "processed"),
+                             os.path.join(tmp, "uploads"), lambda: eng,
+                             start_cleanup=False)
+            sock = socket.socket()
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+            sock.close()
+            thread = threading.Thread(
+                target=loop.run_until_complete, args=(run_server(app, port),),
+                daemon=True)
+            thread.start()
+            for _ in range(200):
+                try:
+                    if _http(port, "GET", "/health", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    time.sleep(0.05)
+            wav = os.path.join(tmp, "meeting.wav")
+            overlap_wav(wav, 2)
+            with open(wav, "rb") as fh:
+                data = fh.read()
+            boundary = "ccsmokeboundary"
+            body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                    f"name=\"file\"; filename=\"meeting.wav\"\r\n"
+                    f"Content-Type: audio/wav\r\n\r\n").encode() + data + \
+                f"\r\n--{boundary}--\r\n".encode()
+            steps = []
+
+            def call(method, path, body=b"", headers=None):
+                status, payload, hdrs = _http(port, method, path, body, headers)
+                steps.append((method, path.split("/")[1], status))
+                if status != 200:
+                    raise SystemExit(f"serve: {method} {path} -> {status}: "
+                                     f"{payload[:200]!r}")
+                return payload, hdrs
+
+            t0 = time.perf_counter()
+            up = json.loads(call("POST", "/upload-file", body, {
+                "Content-Type": f"multipart/form-data; boundary={boundary}"})[0])
+            tid = up["task_id"]
+            k1.mel_power.launches = 0
+            k2.encoder_attention.launches = 0
+            call("POST", f"/transcribe/{tid}")
+            msgs = _ws_progress(port, tid)
+            launches = {"mel_power": k1.mel_power.launches,
+                        "encoder_attention": k2.encoder_attention.launches}
+            request_s = time.perf_counter() - t0
+            status = json.loads(call("GET", f"/task/{tid}/status")[0])
+            text = json.loads(call("GET", f"/transcription/{tid}")[0])
+            pdf, hdrs = call("GET", f"/download-pdf/{tid}")
+            transcript = text.get("transcription", "")
+            log(f"[serve] upload {len(data)} bytes, transcribe, websocket "
+                f"({len(msgs)} messages, last {msgs[-1]}), status "
+                f"{status.get('status')}; request {request_s:.2f} s; "
+                f"transcript {transcript.count('[SPEAKER_')} speaker lines; "
+                f"PDF {len(pdf)} bytes ({hdrs.get('Content-Disposition')}); "
+                f"kernel launches {launches}")
+            for line in transcript.splitlines()[:8]:
+                log(f"[serve]   {line[:70]}")
+            if (status.get("status") != "completed"
+                    or "error" in msgs[-1]["message"].lower()
+                    or "[SPEAKER_" not in transcript
+                    or not pdf.startswith(b"%PDF")):
+                raise SystemExit("serve: the request did not complete with a "
+                                 "transcript")
+            if min(launches.values()) == 0:
+                raise SystemExit("serve: a kernel was never launched")
+    finally:
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=30)
+        loop.close()
+        port_log.removeHandler(errors)
+    if errors.records:
+        raise SystemExit("serve: the port logged errors: " + "; ".join(
+            r.getMessage() for r in errors.records[:5]))
+    return {"steps": steps, "ws_messages": msgs, "request_s": request_s,
+            "launches": launches,
+            "speaker_lines": transcript.count("[SPEAKER_")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one main-path call and one engine pass "
-                         "with torch.profiler")
+                    help="also trace one main-path call, one engine pass and "
+                         "one overlap pass with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -756,12 +1308,23 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
     engine = timed("engine", phase_engine, args.profile)
     parity = timed("engine_parity", phase_engine_parity)
+    overlap, overlap_eng = timed("overlap", phase_overlap, args.profile)
+    overlap_parity = timed("overlap_parity", phase_overlap_parity)
+    serve = timed("serve", phase_serve, overlap_eng)
+    for r in rows:
+        r["launches_by_path"] = {
+            "transcription": r["launches"],
+            "engine": engine["launches"][r["name"]],
+            "overlap_engine": overlap["launches"][r["name"]],
+            "word_timestamps": overlap["align"]["launches"][r["name"]],
+            "serve": serve["launches"][r["name"]]}
 
     report = {"card": card, "build_s": build_s, "sass": sass, "kernels": rows,
               "kernel_extra": kernel_extra, "slice": slice_res,
               "main_calls": calls, "breakdown": breakdown, "engine": engine,
-              "engine_parity": parity, "phase_s": phase_s,
-              "total_s": time.perf_counter() - t_start}
+              "engine_parity": parity, "overlap": overlap,
+              "overlap_parity": overlap_parity, "serve": serve,
+              "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as fh:
         json.dump(report, fh, indent=1, default=str)

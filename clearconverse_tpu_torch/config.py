@@ -5,7 +5,8 @@ fields, same reference defaults). ``TorchConfig`` takes the place of the JAX
 package's ``TPUConfig`` and keeps only the knobs the port reads (the
 transcription program, the audio wire, diarization), with the same
 defaults; ``torch_config_from_env`` mirrors ``tpu_config_from_env`` for them
-under a ``CC_TORCH_*`` prefix.
+under a ``CC_TORCH_*`` prefix. ``load_environment`` reads the server's
+deployment settings (``.env`` and the environment) as the JAX package does.
 """
 
 from __future__ import annotations
@@ -115,3 +116,40 @@ def torch_config_from_env(env: Optional[dict] = None) -> TorchConfig:
         if raw not in (None, ""):
             kw[field] = cast(raw)
     return TorchConfig(**kw)
+
+
+def parse_env_file(path: str) -> dict:
+    """Tiny .env parser: comments, blank lines, ``KEY=VALUE`` and optional
+    surrounding quotes."""
+    out = {}
+    if not os.path.exists(path):
+        return out
+    with open(path, "r", encoding="utf-8") as fh:
+        for line in fh:
+            line = line.strip()
+            if not line or line.startswith("#") or "=" not in line:
+                continue
+            key, _, val = line.partition("=")
+            key, val = key.strip(), val.strip()
+            if len(val) >= 2 and val[0] == val[-1] and val[0] in "\"'":
+                val = val[1:-1]
+            out[key] = val
+    return out
+
+
+def load_environment() -> dict:
+    """Reference back/api.py:77-92: read ``ENV_FILE`` (default ``.env``),
+    overlay onto os.environ-derived settings, return the serving config."""
+    env_file = os.environ.get("ENV_FILE", ".env")
+    file_vars = parse_env_file(env_file)
+
+    def get(key: str, default: str = "") -> str:
+        return os.environ.get(key, file_vars.get(key, default))
+
+    return {
+        "api_host": get("API_HOST", "0.0.0.0"),
+        "api_port": int(get("API_PORT", "8000")),
+        "cors_origins": get("CORS_ORIGINS", "*"),
+        "model_cache_dir": get("MODEL_CACHE_DIR", "./models"),
+        "hf_auth_token": get("HF_AUTH_TOKEN", "") or None,
+    }

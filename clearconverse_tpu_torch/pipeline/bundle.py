@@ -9,9 +9,11 @@ host; ``transcribe_long_batch`` decodes one ≤30 s window of a longer
 segment with timestamp tokens (whisper's seek loop). The speaker half:
 PyanNet segmentation (``segment_frames``) and ECAPA embeddings
 (``embed_*``), from host batches or from store windows, with the same row
-bucketing as the transcription program. Separation, alignment and the
-native checkpoint format are not ported yet; calling one raises
-``NotImplementedError`` naming its ROADMAP item.
+bucketing as the transcription program. The overlap half: RE-SepFormer
+separation (``separate_batch``) and the word-timestamp alignment pass
+(``transcribe_batch(word_timestamps=True)``). The native checkpoint format
+is not ported yet; calling it raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -152,9 +154,10 @@ def _not_ported(name: str, item: str):
 
 
 class ModelBundle:
-    """Whisper, PyanNet and ECAPA on one device (``cuda`` unless the caller
-    passes ``device="cpu"``). Lazy: ``_ensure`` loads on first use;
-    ``load_with_progress`` follows the reference's staged percentages."""
+    """Whisper, RE-SepFormer, PyanNet and ECAPA on one device (``cuda``
+    unless the caller passes ``device="cpu"``). Lazy: ``_ensure`` loads on
+    first use; ``load_with_progress`` follows the reference's staged
+    percentages."""
 
     supports_store = True
 
@@ -173,6 +176,7 @@ class ModelBundle:
         # "random_init".
         self.load_source: dict = {}
         self._whisper = None       # (Whisper module, dims, tokenizer)
+        self._sepformer = None     # Sepformer module (models/resepformer)
         self._ecapa = None         # ECAPA weights (models/ecapa)
         self._pyannet = None       # PyanNet weights (models/pyannet)
         # Dims default to the production configurations; tests inject
@@ -218,10 +222,10 @@ class ModelBundle:
 
     def load_with_progress(self, progress_callback: Optional[Callable] = None) -> bool:
         """The reference's staged load (back/api.py:617-655) and its
-        percentages: separation (10; not ported, ROADMAP slice 3) → Whisper
-        and tokenizer (40) → speaker models (70) → done (100). Weights land
-        on the device once; ``load_source`` names where each family's
-        weights came from ("checkpoint" or "random_init")."""
+        percentages: separation (10) → Whisper and tokenizer (40) → speaker
+        models (70) → done (100). Weights land on the device once;
+        ``load_source`` names where each family's weights came from
+        ("checkpoint" or "random_init")."""
         from clearconverse_tpu_torch.models.convert import (
             init_whisper, load_whisper)
         from clearconverse_tpu_torch.models.tokenizer import load_tokenizer
@@ -231,8 +235,9 @@ class ModelBundle:
                 progress_callback(pct, msg)
 
         try:
-            self.load_source = {"sepformer": "not_ported"}
+            self.load_source = {}
             cb(10, "Loading separation model")
+            self._sepformer = self._load_sepformer()
             cb(40, "Loading Whisper model")
             size = self.config.whisper_model_size
             model, dims = load_whisper(self.model_dir, size, self.device,
@@ -258,6 +263,31 @@ class ModelBundle:
                 raise
             logger.exception("model loading failed")
             return False
+
+    def _load_sepformer(self):
+        """``{model_dir}/resepformer-ft/{encoder,masknet,decoder}.ckpt`` (the
+        reference's fine-tuned triplet) or a seeded random init. The
+        checkpoint's shapes give the dims; the head count and chunk size
+        stay at the production defaults."""
+        import os
+        from clearconverse_tpu_torch.models import resepformer as rsf
+        from clearconverse_tpu_torch.models.convert import load_torch_state_dict
+        ft = os.path.join(self.model_dir, "resepformer-ft")
+        names = ["encoder.ckpt", "masknet.ckpt", "decoder.ckpt"]
+        if all(os.path.exists(os.path.join(ft, n)) for n in names):
+            try:
+                sds = [load_torch_state_dict(os.path.join(ft, n)) for n in names]
+                tree = rsf.convert_speechbrain_sepformer(*sds)
+                dims = rsf.infer_sepformer_dims(tree)
+                self.load_source["sepformer"] = "checkpoint"
+                return rsf.sepformer_from_jax_params(tree, dims, self.device)
+            except Exception as exc:  # noqa: BLE001 — init fallback, as the JAX bundle
+                if is_fatal(exc):
+                    raise
+                logger.warning("resepformer-ft load failed (%s); using init", exc)
+        self.load_source["sepformer"] = "random_init"
+        return rsf.init_sepformer(rsf.SepformerDims(), seed=1,
+                                  device=self.device)
 
     def _load_ecapa(self):
         """``{model_dir}/embedding/embedding_model.ckpt`` (speechbrain) or a
@@ -551,14 +581,15 @@ class ModelBundle:
                          word_timestamps: bool = False):
         """[B, T] padded 16 kHz segments (host array or StoreBatch) +
         per-row prompt strings → texts: pad/trim → log-mel → encoder →
-        batched KV-cached decode on the bundle's device."""
-        if word_timestamps:
-            raise NotImplementedError(
-                "word timestamps (alignment) are not ported yet: ROADMAP.md "
-                "queue 1, slice 3")
+        batched KV-cached decode on the bundle's device.
+
+        ``word_timestamps=True`` (the reference passes it on every call,
+        back/api.py:1290) also returns per-row word lists
+        [{"word", "start", "end"}] from a teacher-forced cross-attention
+        pass over the same padded rows → (texts, words)."""
         self._ensure()
         cfg = self.torch_config
-        _, dims, tok = self._whisper_checked()
+        model, dims, tok = self._whisper_checked()
         sp = tok.specials
         n_real = len(prompts)
         rows = _row_bucket(n_real)
@@ -591,7 +622,39 @@ class ModelBundle:
                     final_avg[i] <= cfg.logprob_threshold:
                 texts[i] = ""
                 final_lengths[i] = 0
-        return texts[:n_real]
+        if not word_timestamps:
+            return texts[:n_real]
+        return texts[:n_real], self._align(model, dims, tok, audio, target,
+                                           final_tokens, final_lengths, n_real)
+
+    @torch.no_grad()
+    def _align(self, model, dims, tok, audio, target: int, tokens, lengths,
+               n_real: int):
+        """Word timestamps of the decoded rows: the rows re-encoded (log-mel,
+        encoder) and one teacher-forced pass replaying openai-whisper's
+        find_alignment conditioning — the full SOT sequence and
+        <|notimestamps|> — on the decode's padded row count; pad rows run
+        with length 0 and give empty lists."""
+        from clearconverse_tpu_torch.audio.mel import log_mel_auto, pad_or_trim
+        from clearconverse_tpu_torch.models.alignment import align_batch
+        from clearconverse_tpu_torch.models.whisper import whisper_encode
+        sp = tok.specials
+        rows = len(tokens)
+        if isinstance(audio, StoreBatch):
+            audio = audio.gather()
+        mel = log_mel_auto(pad_or_trim(audio.float(), target), dims.n_mels)
+        feats = whisper_encode(model, mel, dims, self._cdt)
+        if sp.english_only:
+            pres = [[sp.sot, sp.no_timestamps]] * rows
+        else:
+            lang = self.torch_config.language or "en"
+            pres = ([list(sp.sot_sequence(sp.language_token(lang)))
+                     + [sp.no_timestamps]] * n_real
+                    + [[sp.sot, sp.no_timestamps]] * (rows - n_real))
+        lens = np.zeros(rows, np.int32)
+        lens[:n_real] = np.asarray(lengths[:n_real], np.int32)
+        return align_batch(model, tok, tokens, lens, feats, dims,
+                           prefixes=pres, eot=sp.eot)[:n_real]
 
     def transcribe_long_batch(self, audio, prompts: Sequence,
                               lengths: Optional[np.ndarray] = None,
@@ -832,6 +895,16 @@ class ModelBundle:
         from clearconverse_tpu_torch.models.pyannet import PyannetDims
         return (self._pyannet_dims or PyannetDims()).frame_hop_seconds
 
+    @torch.no_grad()
+    def separate_batch(self, audio) -> np.ndarray:
+        """[B, T] mixtures → [B, T, 2] separated sources (host f32), rows
+        padded to the row bucket on the device."""
+        self._ensure()
+        from clearconverse_tpu_torch.models.resepformer import sepformer_separate
+        (audio,), n_real = _pad_rows([np.asarray(audio, np.float32)], [0])
+        with self._stage_timer.stage("separate_dev"):
+            return _host(sepformer_separate(self._sepformer,
+                                            self._put(audio)))[:n_real]
+
     save_native = _not_ported("save_native", "slice 1 leftovers")
     load_native = _not_ported("load_native", "slice 1 leftovers")
-    separate_batch = _not_ported("separate_batch", "slice 3 (models/resepformer)")

@@ -19,9 +19,8 @@ gathered into batched device calls:
 
 The engine keeps the JAX package's per-file isolation (a file that fails
 returns None), but never for a missing piece of the port or a CUDA error
-(``utils/errors.is_fatal``): those propagate, so an unported
-``separate_batch`` or a failed launch cannot turn into a quietly different
-transcript.
+(``utils/errors.is_fatal``): those propagate, so an unported method or a
+failed launch cannot turn into a quietly different transcript.
 """
 
 from __future__ import annotations
@@ -128,9 +127,9 @@ class TranscriptionEngine:
     @contextlib.contextmanager
     def _phase(self, run_timer, name: str):
         """run_timer.stage(name) that also records the bundle's device
-        sub-spans (embed_dev / segment_dev / decode_dev, each a device call
-        with its result copy) taken during the phase as ``name.*``
-        children."""
+        sub-spans (embed_dev / segment_dev / separate_dev / decode_dev, each
+        a device call with its result copy) taken during the phase as
+        ``name.*`` children."""
         snap = dict(getattr(self.models, "stage_times", {}))
         try:
             with run_timer.stage(name):
@@ -533,7 +532,7 @@ class TranscriptionEngine:
                 logger.error("batched segment embeddings failed: %s", exc,
                              exc_info=True)
                 embs_per_file = [None] * len(file_paths)
-        with run_timer.stage("prepare_files"):
+        with self._phase(run_timer, "prepare_files"):
             preps = [self._prepare_file(p, should_cancel, preloaded=pre,
                                         plan=plans[i],
                                         seg_embs=embs_per_file[i])

@@ -175,18 +175,11 @@ def test_sampling_rung_uses_best_of_replicas(bundles):
     assert len(texts) == 1 and isinstance(texts[0], str)
 
 
-@pytest.mark.parametrize("method", ["separate_batch", "save_native",
-                                    "load_native"])
+@pytest.mark.parametrize("method", ["save_native", "load_native"])
 def test_unported_methods_name_their_roadmap_item(bundles, method):
     _, tb = bundles
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         getattr(tb, method)(np.zeros((1, 16000), np.float32))
-
-
-def test_word_timestamps_not_ported(bundles):
-    _, tb = bundles
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tb.transcribe_batch(_audio(1), [""], word_timestamps=True)
 
 
 def test_default_device_is_cuda():

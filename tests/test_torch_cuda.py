@@ -305,3 +305,32 @@ def test_store_embeddings_equal_host_on_card(cuda):
         embs.append((e, d, f, var, s))
     for a, c in zip(*embs):
         np.testing.assert_allclose(a, c, rtol=1e-4, atol=1e-4)
+
+
+def test_separate_batch_on_card_matches_cpu(cuda):
+    """Full-width RE-SepFormer (SepformerDims(), seeded) through
+    ModelBundle.separate_batch on the card and on the CPU, three rows padded
+    to four at the 5 s bucket: tests/test_speaker_golden.py's rtol 1e-3 /
+    atol 1e-4."""
+    from clearconverse_tpu_torch.config import TorchConfig
+    from clearconverse_tpu_torch.models.resepformer import (
+        SepformerDims, init_sepformer)
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+
+    rng = np.random.default_rng(13)
+    t = np.arange(5 * 16000) / 16000
+    mix = np.stack([0.4 * np.sin(2 * np.pi * f0 * t)
+                    + 0.3 * np.sin(2 * np.pi * f1 * t)
+                    + 0.02 * rng.standard_normal(t.size)
+                    for f0, f1 in ((300, 2000), (180, 900), (250, 1500))])
+    mix[2, 3 * 16000:] = 0.0
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        b = ModelBundle(torch_config=TorchConfig(), device=dev)
+        b._sepformer = init_sepformer(SepformerDims(), seed=1, device=dev)
+        b._loaded = True
+        out = b.separate_batch(mix.astype(np.float32))
+        assert out.shape == (3, 5 * 16000, 2) and out.dtype == np.float32
+        assert np.isfinite(out).all()
+        outs.append(out)
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-3, atol=1e-4)

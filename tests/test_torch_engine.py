@@ -1,9 +1,9 @@
 """The port's TranscriptionEngine end to end on the CPU: the recorded
 DevModels transcript byte for byte, identical transcripts to the JAX engine
 (on DevModels, and on the same converted tiny weights with a >30 s segment
-through transcribe_long_batch), the overlap path raising out of
-process_files for the unported separation, and the per-file isolation that
-never swallows a missing piece or a CUDA error."""
+through transcribe_long_batch, and with an overlap through RE-SepFormer
+separation), and the per-file isolation that never swallows a missing piece
+or a CUDA error."""
 
 import dataclasses
 import logging
@@ -168,7 +168,8 @@ def test_cancel_before_and_between_batches(tmp_path):
 
 def _tiny_pair(knobs):
     """A JAX bundle and a port bundle holding the same weights: tiny
-    Whisper and ECAPA (the JAX package's random init), crafted PyanNet."""
+    Whisper, ECAPA and RE-SepFormer (the JAX package's random init),
+    crafted PyanNet."""
     import jax
     from clearconverse_tpu.models import ecapa as jecapa
     from clearconverse_tpu.pipeline.dev_backend import (
@@ -183,8 +184,12 @@ def _tiny_pair(knobs):
     jb._ecapa = jecapa.init_ecapa_params(jax.random.PRNGKey(38), EDIMS)
     jb._ecapa_dims = EDIMS
     jb._pyannet, jb._pyannet_dims = j_craft()
+    from clearconverse_tpu_torch.models import resepformer as rsf
     tb = port_bundle_like(jb, knobs)
     tb._pyannet, _ = craft_pyannet_freq_params(device="cpu")
+    tb._sepformer = rsf.sepformer_from_jax_params(
+        jax.tree.map(np.asarray, jb._sepformer),
+        rsf.SepformerDims(**dataclasses.asdict(jb._sepformer_dims)), "cpu")
     return jb, tb
 
 
@@ -230,17 +235,36 @@ def test_tiny_weights_engine_matches_jax_with_long_segment(tmp_path):
     assert max(s.end - s.start for s in ours[0]["segments"]) > 30.0
 
 
-def test_overlap_raises_not_implemented_and_logs_nothing(tmp_path, caplog):
-    """The crafted PyanNet finds the synthetic conversation's overlap; the
-    port's separate_batch is not ported, and the error leaves
-    process_files instead of a logged, skipped file."""
+def test_overlap_engine_matches_jax_and_logs_nothing(tmp_path, caplog):
+    """The crafted PyanNet finds the synthetic conversation's overlap: port
+    and JAX engines on the same converted tiny weights (RE-SepFormer
+    included), f32, t=0, separate it and give identical segments, overlap
+    flags, speakers and texts; the port logs no ERROR."""
     jb, tb = _tiny_pair(KNOBS)
     wav = _wav(tmp_path, "conv.wav", synth_conversation())
-    eng = TranscriptionEngine(Config(), TorchConfig(**KNOBS), models=tb)
+    calls = {"port": 0, "jax": 0}
+
+    def counting(b, key):
+        orig = b.separate_batch
+
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return orig(*a, **k)
+        b.separate_batch = wrapped
+
+    counting(tb, "port")
+    counting(jb, "jax")
+    cfg = dict(temperature=0.0)
+    eng = TranscriptionEngine(Config(**cfg), TorchConfig(**KNOBS), models=tb)
     with caplog.at_level(logging.ERROR, logger="clearconverse_tpu_torch"):
-        with pytest.raises(NotImplementedError, match="separate_batch"):
-            eng.process_files([wav])
+        ours = eng.process_files([wav])
     assert not caplog.records
+    ref = JEngine(JConfig(**cfg), jb.tpu, models=jb).process_files([wav])
+    assert ours[0] is not None and ref[0] is not None
+    assert _segments(ours[0]) == _segments(ref[0])
+    assert any(s.is_overlap for s in ours[0]["segments"])
+    assert calls["port"] == calls["jax"] >= 1
+    assert "prepare_files.separate_dev" in eng.last_run_stage_times
 
 
 def test_store_path_equals_host_path(tmp_path):

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no file of clearconverse_tpu_torch/ (nor
-chip_smoke.py) imports jax or the JAX package, and a tiny transcription and
-the engine's default pass on one short file run in a process where both are
-refused at import."""
+chip_smoke.py) imports jax or the JAX package, and a tiny transcription,
+the engine's default pass on one short file, one separation and the
+server's import run in a process where both are refused at import."""
 
 import ast
 import os
@@ -97,6 +97,19 @@ _SCRIPT = textwrap.dedent("""
     eng = TranscriptionEngine(torch_config=b.torch_config, models=b)
     res, = eng.process_files([path])
     assert res is not None and res["segments"], res
+
+    # One RE-SepFormer separation through the bundle, and the server's
+    # module graph (which needs no ``requests`` until a URL is fetched).
+    from clearconverse_tpu_torch.models.resepformer import (
+        SepformerDims, init_sepformer)
+    b._sepformer = init_sepformer(
+        SepformerDims(enc_channels=16, d_model=16, n_heads=2, chunk_size=20,
+                      n_repeats=1, n_intra_layers=1, n_inter_layers=1),
+        0, "cpu")
+    sep = b.separate_batch(audio[:, :8000].astype(np.float32))
+    assert sep.shape == (2, 8000, 2), sep.shape
+    import clearconverse_tpu_torch.serve.app  # noqa: F401
+    assert "requests" not in sys.modules
     leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "clearconverse_tpu" or m.startswith("clearconverse_tpu.")]
     assert not leaked, leaked
