@@ -8,22 +8,23 @@ Phases, each fatal on failure:
                tensor-core instructions (HGMMA, HMMA) in its SASS;
   2. kernels — hold each kernel against its plain PyTorch version on the card
                at the main path's shapes (K1 on noise and on speech with
-               silence; K1 and K2 bf16 also at the engine's batch of 32), and
-               time kernel, plain version and, where one exists, the single
-               PyTorch library call;
+               silence; K1 and K2 bf16 also at the engine's batch of 32 and
+               the bench hot path's of 128), and time kernel, plain version
+               and, where one exists, the single PyTorch library call;
   3. slice   — a 2-layer model at small.en's full width, f32: transcribe_batch
                at t=0 on the card (kernels) and on the CPU (plain versions);
                identical tokens and texts, encoder output and prefill logits
                within tolerance;
-  4. main    — ModelBundle at small.en dims (./models/small.en.pt if present,
-               else seeded random weights) with the default TorchConfig knobs
+  4. main    — ModelBundle at small.en dims (seeded random weights: phases
+               4–9 load from an empty model directory of their own, so what
+               ./models holds does not change them) with the default TorchConfig knobs
                (bf16, int8 cross-KV, temperature 0.1, best_of 5) transcribes
                segments of a synthetic WAV as a host batch and as a StoreBatch,
                then once more at t=0; every kernel's launch count must rise;
   5. engine  — TranscriptionEngine.process_files (the user's entry point) on
                8 WAV files of 60 s at the full width of Whisper small.en,
-               PyanNet and ECAPA (checkpoints from ./models if present, else
-               seeded random weights): one cold pass, two timed passes; RTFx,
+               PyanNet and ECAPA (seeded random weights): one cold pass, two
+               timed passes; RTFx,
                the stage split, segments per file, the audio wire, peak
                device memory and K1/K2 launches. It fails on a None file, an
                ERROR log record of the port, a wire other than packed_delta,
@@ -58,7 +59,27 @@ Phases, each fatal on failure:
                upload a WAV with overlaps, POST /transcribe/{id}, read
                /ws/progress/{id} to its end, GET /transcription/{id} and
                /download-pdf/{id}; it fails on a non-200, an error marker or
-               a transcript without a [SPEAKER_ line.
+               a transcript without a [SPEAKER_ line;
+ 10. rehearsal — eval/dress_rehearsal.populate at full scale (small.en,
+               EcapaDims(), PyannetDims(), SepformerDims(), 50,000 merges)
+               into a temporary directory; a cold ModelBundle on it must
+               report every family as checkpoint and BPETokenizer, its
+               Whisper must equal the written module rounded to fp16 (max
+               error 0), and one transcribe_batch at the default knobs runs
+               on phase 4's segments; write and load seconds, file sizes;
+ 11. int4    — cross_kv_bits=4 on a 2-layer small.en-width model at f32
+               t=0: identical tokens and texts card vs CPU; then phase 4's
+               call at full width on the rehearsal bundle at int8 and int4
+               in turns (8, 4, 4, 8): step time, peak memory, cross-KV
+               bytes at rest;
+ 12. bench   — python -m clearconverse_tpu_torch.bench on the rehearsal
+               directory at BENCH_ARGS in its own process: the last line
+               parses and is under 2,000 characters, random_weights is
+               false, every RTFx is > 0, K1 and K2 launched in the hot path;
+ 13. parity  — eval.parity --levers on two 24 s overlap files whose
+               .ref.txt come from a fresh engine on the rehearsal
+               checkpoints (with the crafted PyanNet in pyannote's format):
+               the base row reads WER 0 and DER 0; the levers' deltas.
 Then it prints the kernels JSON line, the card's name and power limit, and,
 last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -79,6 +100,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -189,7 +211,7 @@ def phase_kernels(gen: torch.Generator):
     frame_flops = (400 + 2.5 * 400 * math.log2(400) + 3 * 201
                    + 2 * int(np.count_nonzero(melmod.mel_filterbank(80))))
     k1_rows, k1_bounds = {}, {}
-    for B in (N_SEG, 32):
+    for B in (N_SEG, 32, 128):
         inputs = {
             "noise": torch.randn((B, WINDOW), generator=gen, device="cuda") * 0.1,
             "speech": torch.from_numpy(np.stack([
@@ -229,24 +251,32 @@ def phase_kernels(gen: torch.Generator):
             "bound_f32_fma_ms": bound_ms(moved, dense, "float32")[0]}
         del inputs, audio
     rows.append(k1_rows[N_SEG])
-    extra = {"mel_power_b32": {key: val for key, val in k1_rows[32].items()
-                               if key != "launches"},
-             "mel_power_other_bounds": k1_bounds}
+    extra = {f"mel_power_b{B}": {key: val for key, val in k1_rows[B].items()
+                                 if key != "launches"} for B in (32, 128)}
+    extra["mel_power_other_bounds"] = k1_bounds
 
-    # K2 at T=1500, D=768, H=12: bf16 (the main path's dtype) at B=N_SEG and
-    # at the engine's transcription batch of 32, and f32 at B=N_SEG. q, k ~
+    # K2 at T=1500, D=768, H=12: bf16 (the main path's dtype) at B=N_SEG, at
+    # the engine's transcription batch of 32 and at the bench hot path's 128,
+    # and f32 at B=N_SEG. The plain version runs 32 rows at a time (its f32
+    # logits at B=128 would take 14 GB). q, k ~
     # N(0, 1) give logits of unit spread; v ~ 0.3 N(0, 1) as in
     # tests/test_pallas.py, so outputs stay below 0.25, where one bf16
     # rounding step of the output (both sides round it) is under 1e-3.
     T, D, H = 1500, 768, 12
     k2_rows = {}
+
+    def k2_plain(q, k, v):
+        return torch.cat([k2.encoder_attention_plain(
+            q[i:i + 32], k[i:i + 32], v[i:i + 32], H)
+            for i in range(0, q.shape[0], 32)])
+
     for B, dtype, atol in ((N_SEG, "float32", 1e-4), (N_SEG, "bfloat16", 2e-3),
-                           (32, "bfloat16", 2e-3)):
+                           (32, "bfloat16", 2e-3), (128, "bfloat16", 2e-3)):
         q, k, v = (torch.randn((B, T, D), generator=gen, device="cuda")
                    .mul_(scale).to(getattr(torch, dtype))
                    for scale in (1.0, 1.0, 0.3))
         out = k2.encoder_attention(q, k, v, H)
-        ref = k2.encoder_attention_plain(q, k, v, H)
+        ref = k2_plain(q, k, v)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         del out, ref
@@ -269,17 +299,17 @@ def phase_kernels(gen: torch.Generator):
             "replaces": "clearconverse_tpu/ops/pallas/encoder_attention.py:61",
             "launches": 0, "max_abs_err": err,
             "ms": time_ms(lambda: k2.encoder_attention(q, k, v, H)),
-            "plain_ms": time_ms(lambda: k2.encoder_attention_plain(q, k, v, H),
-                                iters=3),
+            "plain_ms": time_ms(lambda: k2_plain(q, k, v), iters=3),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(
                 lambda: F.scaled_dot_product_attention(qh, kh, vh))}
         del q, k, v, qh, kh, vh
     rows.append(k2_rows[N_SEG])
-    extra["encoder_attention_b32"] = {key: val for key, val in k2_rows[32].items()
-                                      if key != "launches"}
+    for B in (32, 128):
+        extra[f"encoder_attention_b{B}"] = {
+            key: val for key, val in k2_rows[B].items() if key != "launches"}
     for label, r in [("", x) for x in rows] + [
-            (" (B=32)", k1_rows[32]), (" (B=32)", k2_rows[32])]:
+            (f" (B={B})", r[B]) for B in (32, 128) for r in (k1_rows, k2_rows)]:
         log(f"[kernels] {r['name']}{label}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
@@ -362,16 +392,12 @@ def phase_slice():
     return res
 
 
-def phase_main(profile: bool):
-    """small.en dims, default knobs, through the user's entry points."""
+def main_segments():
+    """Phase 4's input: N_SEG voiced segments of 5–30 s with 0.5 s gaps,
+    written to a WAV and read back. Returns (wave, starts, lens, the host
+    batch of the 30 s bucket, audio seconds)."""
     from clearconverse_tpu_torch.audio.wav import read_wav, write_wav
-    from clearconverse_tpu_torch.config import Config, TorchConfig
-    from clearconverse_tpu_torch.models import decoding
-    from clearconverse_tpu_torch.ops import encoder_attention as k2
-    from clearconverse_tpu_torch.ops import logmel as k1
     from clearconverse_tpu_torch.pipeline.batching import batch_audio
-    from clearconverse_tpu_torch.pipeline.bundle import (
-        ModelBundle, iter_store_batches)
 
     rng = np.random.default_rng(2)
     durations = [5.0, 8.5, 12.0, 16.0, 20.0, 24.5, 28.0, 30.0][:N_SEG]
@@ -391,10 +417,22 @@ def phase_main(profile: bool):
     lens = [int(d * SR) for d in durations]
     segs = [wave[s:s + n] for s, n in zip(starts, lens)]
     (_, host_batch, _), = batch_audio(segs, SR, buckets=(30.0,), batch_size=N_SEG)
-    audio_s = sum(durations)
+    return wave, starts, lens, host_batch, sum(durations)
 
+
+def phase_main(profile: bool, model_dir: str):
+    """small.en dims, default knobs, through the user's entry points;
+    weights from ``model_dir``."""
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.models import decoding
+    from clearconverse_tpu_torch.ops import encoder_attention as k2
+    from clearconverse_tpu_torch.ops import logmel as k1
+    from clearconverse_tpu_torch.pipeline.bundle import (
+        ModelBundle, iter_store_batches)
+
+    wave, starts, lens, host_batch, audio_s = main_segments()
     t0 = time.perf_counter()
-    bundle = ModelBundle(Config(), TorchConfig(), model_dir="./models")
+    bundle = ModelBundle(Config(), TorchConfig(), model_dir=model_dir)
     if not bundle.load_with_progress():
         raise SystemExit("model load failed")
     torch.cuda.synchronize()
@@ -538,27 +576,6 @@ def profile_call(fn, unprofiled_wall: float, tag: str):
             "top_ms": [(n, us / 1e3) for n, us in top]}
 
 
-def engine_wavs(tmp: str, n_files: int = 8):
-    """n_files WAVs of 60 s: the speech-shaped two-speaker conversation tiled
-    five times, plus band-limited noise of σ 0.01, a different draw per file
-    (the JAX package's engine workload in bench.py)."""
-    from clearconverse_tpu_torch.audio.wav import write_wav
-    from clearconverse_tpu_torch.pipeline.dev_backend import (
-        synth_conversation_speech)
-    rng = np.random.default_rng(0)
-    base = np.tile(synth_conversation_speech(), 5)
-    paths = []
-    for i in range(n_files):
-        w = rng.standard_normal(base.size + 8).astype(np.float32)
-        c = np.cumsum(w, dtype=np.float64)
-        noise = ((c[8:] - c[:-8]) / 8.0)[:base.size]
-        noise = (noise * (0.01 / noise.std())).astype(np.float32)
-        path = os.path.join(tmp, f"conv_{i}.wav")
-        write_wav(path, base + noise, SR)
-        paths.append(path)
-    return paths, base.size / SR
-
-
 class _Errors(logging.Handler):
     """Collects the port's ERROR records during a phase."""
 
@@ -579,9 +596,11 @@ def _count_calls(bundle, name: str, counter: dict):
     setattr(bundle, name, counted)
 
 
-def phase_engine(profile: bool):
-    """The engine's default pass at full width through process_files; with
-    ``profile``, one more pass under torch.profiler."""
+def phase_engine(profile: bool, model_dir: str):
+    """The engine's default pass at full width through process_files,
+    weights from ``model_dir``; with ``profile``, one more pass under
+    torch.profiler."""
+    from clearconverse_tpu_torch.bench import engine_wavs
     from clearconverse_tpu_torch.config import Config, TorchConfig
     from clearconverse_tpu_torch.ops import encoder_attention as k2
     from clearconverse_tpu_torch.ops import logmel as k1
@@ -592,13 +611,13 @@ def phase_engine(profile: bool):
     port_log.addHandler(errors)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            paths, file_s = engine_wavs(tmp)
+            paths, file_s = engine_wavs(tmp, 8)
             audio_s = file_s * len(paths)
             t0 = time.perf_counter()
             tc = TorchConfig(diarization_onset=0.35, diarization_offset=0.25,
                              max_decode_tokens=64, max_fallback_attempts=1)
             eng = TranscriptionEngine(Config(noise_reduction_amount=0.2), tc,
-                                      model_dir="./models",
+                                      model_dir=model_dir,
                                       load_models_immediately=True)
             if not eng.models_are_loaded():
                 raise SystemExit("engine: model load failed")
@@ -754,22 +773,15 @@ def byte_text(model):
     return model
 
 
-def overlap_wav(path: str, repeats: int, scale: float = 1.0) -> None:
-    """synth_conversation() (L, H, L, then L+H overlapping) tiled."""
-    from clearconverse_tpu_torch.audio.wav import write_wav
-    from clearconverse_tpu_torch.pipeline.dev_backend import synth_conversation
-    write_wav(path, np.tile(synth_conversation(), repeats) * scale, SR)
-
-
 # Phase 7's pipeline settings. min_speakers=2: seeded ECAPA embeds the
 # stationary tones by their onsets as much as by their bands, and only two
 # forced clusters split the speakers (PERF.md §4).
 OVERLAP_CONFIG = dict(noise_reduction_amount=0.2, min_speakers=2)
 
 
-def overlap_engine(device="cuda"):
-    """Phase 7's engine: weights from ./models where present, else seeded
-    at full width; the crafted frequency-selective PyanNet at PyannetDims()
+def overlap_engine(model_dir: str, device="cuda"):
+    """Phase 7's engine: weights from ``model_dir`` where present, else
+    seeded at full width; the crafted frequency-selective PyanNet at PyannetDims()
     unless a PyanNet checkpoint was loaded; a random Whisper gets byte_text
     so transcripts have text."""
     from clearconverse_tpu_torch.config import Config, TorchConfig
@@ -781,7 +793,7 @@ def overlap_engine(device="cuda"):
     tc = TorchConfig(diarization_onset=0.35, diarization_offset=0.25,
                      max_decode_tokens=64, max_fallback_attempts=1)
     eng = TranscriptionEngine(Config(**OVERLAP_CONFIG), tc,
-                              model_dir="./models", device=device,
+                              model_dir=model_dir, device=device,
                               load_models_immediately=True)
     if not eng.models_are_loaded():
         raise SystemExit("overlap: model load failed")
@@ -853,10 +865,12 @@ def separation_split(model, rows: int):
     return out
 
 
-def phase_overlap(profile: bool):
-    """The overlap path at full width through process_files; then one
-    word-timestamp transcription call. Returns (report, engine)."""
+def phase_overlap(profile: bool, model_dir: str):
+    """The overlap path at full width through process_files, weights from
+    ``model_dir``; then one word-timestamp transcription call. Returns
+    (report, engine)."""
     from clearconverse_tpu_torch.audio.wav import read_wav
+    from clearconverse_tpu_torch.bench import overlap_wavs
     from clearconverse_tpu_torch.ops import encoder_attention as k2
     from clearconverse_tpu_torch.ops import logmel as k1
     from clearconverse_tpu_torch.pipeline.bundle import _row_bucket
@@ -866,14 +880,11 @@ def phase_overlap(profile: bool):
     port_log.addHandler(errors)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            paths = [os.path.join(tmp, f"overlap_{i}.wav") for i in range(8)]
-            for i, path in enumerate(paths):
-                # Scaled 1 % apart, so no two files are the same.
-                overlap_wav(path, 5, 1.0 + 0.01 * i)
-            file_s = read_wav(paths[0])[0].shape[1] / SR
+            # Scaled 1 % apart, so no two files are the same.
+            paths, file_s = overlap_wavs(tmp, 8)
             audio_s = file_s * len(paths)
             t0 = time.perf_counter()
-            eng = overlap_engine()
+            eng = overlap_engine(model_dir)
             torch.cuda.synchronize()
             load_s = time.perf_counter() - t0
             b = eng.models
@@ -1013,6 +1024,7 @@ def sep_mixtures(rows: int = 3, seconds: int = 5) -> np.ndarray:
 def phase_overlap_parity(devices=("cuda", "cpu")):
     """separate_batch, process_files with overlaps and word timestamps on
     the card and on the CPU with the same seeded weights."""
+    from clearconverse_tpu_torch.bench import overlap_wavs
     from clearconverse_tpu_torch.config import Config, TorchConfig
     from clearconverse_tpu_torch.models.convert import init_whisper
     from clearconverse_tpu_torch.models.ecapa import EcapaDims, init_ecapa
@@ -1036,8 +1048,7 @@ def phase_overlap_parity(devices=("cuda", "cpu")):
                      diarization_offset=0.25)
     outs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "overlap_24s.wav")
-        overlap_wav(path, 2)
+        (path,), _ = overlap_wavs(tmp, 1, tiles=2)
         for dev in devices:
             b = ModelBundle(cfg, tc, device=dev)
             b._whisper = (copy.deepcopy(cpu_whisper).to(dev), dims,
@@ -1170,6 +1181,7 @@ def phase_serve(eng):
     import asyncio
     import socket
     import threading
+    from clearconverse_tpu_torch.bench import overlap_wavs
     from clearconverse_tpu_torch.ops import encoder_attention as k2
     from clearconverse_tpu_torch.ops import logmel as k1
     from clearconverse_tpu_torch.serve.app import create_app
@@ -1210,8 +1222,7 @@ def phase_serve(eng):
                         break
                 except OSError:
                     time.sleep(0.05)
-            wav = os.path.join(tmp, "meeting.wav")
-            overlap_wav(wav, 2)
+            (wav,), _ = overlap_wavs(tmp, 1, tiles=2)
             with open(wav, "rb") as fh:
                 data = fh.read()
             boundary = "ccsmokeboundary"
@@ -1274,6 +1285,296 @@ def phase_serve(eng):
             "speaker_lines": transcript.count("[SPEAKER_")}
 
 
+# ------------------------------------------ checkpoints, int4, bench, parity
+
+ALL_CHECKPOINT = {"whisper": "checkpoint", "tokenizer": "BPETokenizer",
+                  "ecapa": "checkpoint", "pyannet": "checkpoint",
+                  "sepformer": "checkpoint"}
+
+
+# The keys of bench._measured's launch counts, by kernel.
+BENCH_KEY = {"mel_power": "k1", "encoder_attention": "k2"}
+
+
+def phase_rehearsal(model_dir: str):
+    """The dress-rehearsal checkpoint set at full scale into ``model_dir``,
+    a cold ModelBundle on it with the default knobs, and one transcribe_batch
+    on phase 4's segments. Returns (report, bundle, host batch)."""
+    from clearconverse_tpu_torch.bench import _measured
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.eval import dress_rehearsal as dr
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.whisper import model_dims
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+
+    t0 = time.perf_counter()
+    paths = dr.populate(model_dir, "small.en", seed=0, device="cuda")
+    write_s = time.perf_counter() - t0
+    sizes_mb = {fam: dr.path_bytes(p) / 1e6 for fam, p in paths.items()}
+    with open(paths["tokenizer"], encoding="utf-8") as fh:
+        n_vocab = len(json.load(fh))
+    log(f"[rehearsal] populate(small.en, EcapaDims(), PyannetDims(), "
+        f"SepformerDims(), 50,000 merges) in {write_s:.1f} s; MB "
+        f"{ {k: round(v, 1) for k, v in sizes_mb.items()} }; vocab {n_vocab}")
+
+    t0 = time.perf_counter()
+    bundle = ModelBundle(Config(), TorchConfig(), model_dir=model_dir)
+    if not bundle.load_with_progress():
+        raise SystemExit("rehearsal: model load failed")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model, dims, tok = bundle._whisper
+    # The loaded weights against the written module rounded to fp16 (the
+    # file's precision) and then to the dtype they were loaded in.
+    got = dict(model.named_parameters())
+    reload_err = 0.0
+    for name, p in init_whisper(model_dims("small.en"), 0, "cuda").named_parameters():
+        want = p.detach().half().to(got[name].dtype)
+        reload_err = max(reload_err,
+                         float((got[name].float() - want.float()).abs().max()))
+    torch.cuda.empty_cache()
+    log(f"[rehearsal] cold ModelBundle in {load_s:.1f} s: load_source "
+        f"{bundle.load_source}, dims {dims}, tokenizer merges {len(tok.ranks)}; "
+        f"reloaded Whisper vs the written module rounded to fp16: max err "
+        f"{reload_err}")
+    if (bundle.load_source != ALL_CHECKPOINT or dims != model_dims("small.en")
+            or reload_err != 0.0 or n_vocab != 50257
+            or len(tok.ranks) != 50000):
+        raise SystemExit("rehearsal: the checkpoint set did not load as written")
+
+    _, _, _, host_batch, audio_s = main_segments()
+    counted: dict = {}
+    with _measured(torch.device("cuda"), counted):
+        t0 = time.perf_counter()
+        texts = bundle.transcribe_batch(host_batch, [""] * N_SEG,
+                                        temperature=Config().temperature)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counted["launches"]
+    log(f"[rehearsal] transcribe_batch at the default knobs on phase 4's "
+        f"{N_SEG} segments: {wall:.3f} s (RTFx {audio_s / wall:.1f}), text "
+        f"chars {[len(t) for t in texts]}, kernel launches {launches}")
+    if len(texts) != N_SEG or not all(isinstance(t, str) for t in texts):
+        raise SystemExit("rehearsal: bad transcribe_batch result")
+    if min(launches.values()) == 0:
+        raise SystemExit("rehearsal: a kernel was never launched")
+    return ({"write_s": write_s, "load_s": load_s, "sizes_mb": sizes_mb,
+             "vocab": n_vocab, "reload_max_err": reload_err,
+             "load_source": dict(bundle.load_source),
+             "transcribe_wall_s": wall, "launches": launches},
+            bundle, host_batch)
+
+
+def phase_int4(bundle, host_batch):
+    """int4 cross-KV: a 2-layer small.en-width model at f32 t=0, card vs CPU
+    (identical tokens and texts); then phase 4's full-width call on the
+    rehearsal bundle at int8 and at int4: decode step time, peak memory and
+    the cross-KV bytes at rest."""
+    from clearconverse_tpu_torch.audio.mel import log_mel_auto, pad_or_trim
+    from clearconverse_tpu_torch.bench import _measured
+    from clearconverse_tpu_torch.config import TorchConfig
+    from clearconverse_tpu_torch.models import decoding
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.tokenizer import ByteFallbackTokenizer
+    from clearconverse_tpu_torch.models.whisper import (
+        model_dims, precompute_cross_kv, whisper_encode)
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    from clearconverse_tpu_torch.utils.tracing import StageTimer
+
+    dims = dataclasses.replace(model_dims("small.en"), n_audio_layer=2,
+                               n_text_layer=2)
+    cpu_model = init_whisper(dims, seed=1, device="cpu")
+    rng = np.random.default_rng(4)
+    audio = np.stack([np.pad(synth_speech(rng, s), (0, WINDOW - int(s * SR)))
+                      for s in (9.0, 23.0)])
+    toks, lens = decoding.build_prompt_batch([[50257, 50362]] * 2, 4, 50256)
+    opts = decoding.DecodeOptions(max_tokens=16, suppress_tokens=tuple(
+        range(50257, 51864)), no_speech_token=50361, cross_kv_bits=4)
+    cfg = TorchConfig(compute_dtype="float32", cross_kv_bits=4,
+                      max_decode_tokens=16)
+    outs, counted = {}, {}
+    with _measured(torch.device("cuda"), counted):
+        for dev in ("cuda", "cpu"):
+            model = copy.deepcopy(cpu_model).to(dev)
+            dec = decoding.greedy_decode_from_audio(
+                model, torch.from_numpy(audio).to(dev),
+                torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
+                dims, opts, 4)
+            b = ModelBundle(torch_config=cfg, device=dev)
+            b._whisper = (model, dims, ByteFallbackTokenizer())
+            b._loaded = True
+            texts = b.transcribe_batch(audio, ["", "a prompt"], temperature=0.0)
+            outs[dev] = (dec["tokens"].cpu(), texts)
+    launches = counted["launches"]
+    same_tokens = torch.equal(outs["cuda"][0], outs["cpu"][0])
+    same_texts = outs["cuda"][1] == outs["cpu"][1]
+    log(f"[int4] 2-layer d=768 f32 t=0 cross_kv_bits=4, card vs CPU: tokens "
+        f"identical {same_tokens}, texts identical {same_texts}, kernel "
+        f"launches on the card {launches}")
+    if not (same_tokens and same_texts and min(launches.values()) > 0):
+        raise SystemExit("int4: card and CPU disagree")
+
+    model, wdims, _ = bundle._whisper
+    base = bundle.torch_config
+    mel = log_mel_auto(pad_or_trim(torch.from_numpy(np.asarray(host_batch))
+                                   .cuda(), WINDOW), wdims.n_mels)
+    full = {8: [], 4: []}
+    for bits in (8, 4, 4, 8):         # in turns: 8, 4, 4, 8
+        with torch.inference_mode():
+            enc = whisper_encode(model, mel, wdims, bundle._cdt)
+            ckv = precompute_cross_kv(model, enc, wdims.n_text_head, bits=bits)
+        at_rest = sum(t.numel() * t.element_size() for layer in ckv
+                      for entry in layer.values()
+                      for t in (entry.values() if isinstance(entry, dict)
+                                else [entry]) if torch.is_tensor(t))
+        del enc, ckv
+        bundle.torch_config = dataclasses.replace(base, cross_kv_bits=bits)
+        timer = StageTimer(sync=True)
+        bundle.decode_timer = timer
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            texts = bundle.transcribe_batch(host_batch, [""] * N_SEG,
+                                            temperature=0.1)
+            torch.cuda.synchronize()
+        finally:
+            bundle.torch_config = base
+            bundle.decode_timer = None
+        steps = timer.counts.get("token_loop_steps", 0)
+        run = {"wall_s": time.perf_counter() - t0,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "step_ms": timer.as_dict()["token_loop"] / max(steps, 1) * 1e3,
+               "steps": steps, "cross_kv_bytes_at_rest": at_rest,
+               "text_chars": sum(len(t) for t in texts)}
+        full[bits].append(run)
+        log(f"[int4] full-width transcribe_batch ({N_SEG} rows, t=0.1 best_of "
+            f"{base.best_of}) at cross_kv_bits={bits}: {run['wall_s']:.3f} s, "
+            f"step {run['step_ms']:.2f} ms over {steps} steps, peak "
+            f"{run['peak_mem_gb']:.2f} GB, cross-KV at rest "
+            f"{at_rest / 1e6:.1f} MB for {N_SEG} rows")
+    return {"tokens_identical": same_tokens, "texts_identical": same_texts,
+            "launches": launches, "full_width": full}
+
+
+# Small enough to keep the whole script well inside its time limit.
+BENCH_ARGS = ["--batch", "32", "--iters", "2", "--engine-files", "4",
+              "--engine-repeats", "2", "--latency-repeats", "2"]
+
+
+def phase_bench(model_dir: str):
+    """``python -m clearconverse_tpu_torch.bench`` in its own process on the
+    rehearsal directory. Returns its last line."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "clearconverse_tpu_torch.bench",
+           "--model-dir", model_dir, *BENCH_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/chip_smoke_bench.log", "w") as fh:
+        fh.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise SystemExit(f"bench exited {proc.returncode}: "
+                         f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    first, raw = json.loads(lines[0]), lines[-1]
+    last = json.loads(raw)
+    log(f"[bench] {' '.join(cmd[1:])}: {wall:.1f} s, {len(lines)} lines, the "
+        f"last {len(raw)} characters:")
+    log(f"[bench] {raw}")
+    blocks = ("engine", "engine_ref_default", "engine_overlap")
+    rtfx = [last["value"]] + [last[b].get(k, 0) for b in blocks
+                              for k in ("rtfx_warm_best", "rtfx_warm_mean")]
+    hot = last["hot_path"]["launches"]
+    bad = [b for b in (*blocks, "latency") if not isinstance(last.get(b), dict)
+           or {"error", "skipped"} & set(last[b])]
+    if (len(raw) >= 2000 or first.get("engine") != {"status": "pending"}
+            or last["engine"]["knobs"]["random_weights"] is not False
+            or min(rtfx) <= 0 or last["latency"]["latency_best_s"] <= 0
+            or min(hot.values()) == 0 or bad):
+        raise SystemExit(f"bench: bad result (blocks {bad}, RTFx {rtfx}, "
+                         f"hot-path launches {hot})")
+    return {"wall_s": wall, "args": BENCH_ARGS, "line_chars": len(raw),
+            "line": last}
+
+
+def phase_parity(model_dir: str, tmp: str):
+    """The parity recipe with --levers on two 24 s overlap files whose
+    references come from a fresh engine on the rehearsal checkpoints (with
+    the crafted frequency-selective PyanNet written in pyannote's format,
+    since seeded PyanNet weights find no speaker in them)."""
+    import contextlib
+    import io
+    from clearconverse_tpu_torch.bench import _measured, overlap_wavs
+    from clearconverse_tpu_torch.config import Config, torch_config_from_env
+    from clearconverse_tpu_torch.eval import dress_rehearsal as dr
+    from clearconverse_tpu_torch.eval import parity
+    from clearconverse_tpu_torch.models.pyannet import PyannetDims
+    from clearconverse_tpu_torch.pipeline.dev_backend import (
+        craft_pyannet_freq_params)
+    from clearconverse_tpu_torch.pipeline.engine import TranscriptionEngine
+
+    models = os.path.join(tmp, "parity_models")
+    os.makedirs(models)
+    for name in os.listdir(model_dir):
+        if name != "segmentation":
+            os.symlink(os.path.join(model_dir, name), os.path.join(models, name))
+    params, pdims = craft_pyannet_freq_params(PyannetDims(), device="cuda")
+    dr.write_pyannet(models, 0, pdims, params=params)
+    eval_set = os.path.join(tmp, "parity_set")
+    os.makedirs(eval_set)
+    wavs, _ = overlap_wavs(eval_set, 2, tiles=2)
+    ref = TranscriptionEngine(Config(), torch_config_from_env(),
+                              model_dir=models, load_models_immediately=True)
+    if ref.models.load_source != ALL_CHECKPOINT:
+        raise SystemExit(f"parity: reference engine loaded {ref.models.load_source}")
+    n_segments = []
+    for wav in wavs:
+        res = ref.process_file(wav)
+        if res is None or not res["segments"]:
+            raise SystemExit(f"parity: no segments for {wav}")
+        n_segments.append(len(res["segments"]))
+        with open(wav[:-4] + ".ref.txt", "w", encoding="utf-8") as fh:
+            fh.write("".join(f"[{s.speaker_id}] {s.start:.2f}s - {s.end:.2f}s\n"
+                             f"{s.transcription}\n\n" for s in res["segments"]))
+    del ref
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "parity_report")
+    counted: dict = {}
+    t0 = time.perf_counter()
+    brief = io.StringIO()
+    with contextlib.redirect_stdout(brief), _measured(torch.device("cuda"),
+                                                      counted):
+        rc = parity.main(["--models", models, "--eval-set", eval_set,
+                          "--out", out, "--levers"])
+    wall = time.perf_counter() - t0
+    launches = counted["launches"]
+    with open(out + ".json") as fh:
+        report = json.load(fh)
+    levers = {name: {k: lv[k] for k in ("mean_wer", "mean_der", "delta_wer",
+                                        "delta_der", "mean_rtfx")}
+              for name, lv in report.get("levers", {}).items()}
+    log(f"[parity] references: segments per file {n_segments}; parity --levers "
+        f"in {wall:.1f} s: base mean WER {report['mean_wer']}, mean DER "
+        f"{report['mean_der']}, mean RTFx {report['mean_rtfx']}; kernel "
+        f"launches {launches}")
+    for row in report["rows"]:
+        log(f"[parity]   {row}")
+    for name, lv in levers.items():
+        log(f"[parity]   lever {name}: {lv}")
+    if (rc != 0 or report["files"] != 2
+            or any("error" in r for r in report["rows"])
+            or report["mean_wer"] != 0.0 or report["mean_der"] != 0.0
+            or set(levers) != set(parity.LEVERS)
+            or min(launches.values()) == 0):
+        raise SystemExit("parity: the base row is not WER 0 / DER 0")
+    return {"wall_s": wall, "segments_per_file": n_segments,
+            "mean_wer": report["mean_wer"], "mean_der": report["mean_der"],
+            "rows": report["rows"], "levers": levers, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1303,27 +1604,54 @@ def main() -> int:
     build_s, sass = timed("build", phase_build)
     rows, kernel_extra = timed("kernels", phase_kernels, gen)
     slice_res = timed("slice", phase_slice)
-    calls, launches, breakdown = timed("main", phase_main, args.profile)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-    engine = timed("engine", phase_engine, args.profile)
-    parity = timed("engine_parity", phase_engine_parity)
-    overlap, overlap_eng = timed("overlap", phase_overlap, args.profile)
-    overlap_parity = timed("overlap_parity", phase_overlap_parity)
-    serve = timed("serve", phase_serve, overlap_eng)
+    # Phases 4-9 run on seeded weights: their model directory is empty.
+    seeded_dir = tempfile.mkdtemp(prefix="cc_seeded_")
+    rehearsal_dir = tempfile.mkdtemp(prefix="cc_rehearsal_")
+    try:
+        calls, launches, breakdown = timed("main", phase_main, args.profile,
+                                           seeded_dir)
+        for r in rows:
+            r["launches"] = launches[r["name"]]
+        engine = timed("engine", phase_engine, args.profile, seeded_dir)
+        parity = timed("engine_parity", phase_engine_parity)
+        overlap, overlap_eng = timed("overlap", phase_overlap, args.profile,
+                                     seeded_dir)
+        overlap_parity = timed("overlap_parity", phase_overlap_parity)
+        serve = timed("serve", phase_serve, overlap_eng)
+        del overlap_eng
+        torch.cuda.empty_cache()
+        rehearsal, rbundle, host_batch = timed(
+            "rehearsal", phase_rehearsal, os.path.join(rehearsal_dir, "models"))
+        int4 = timed("int4", phase_int4, rbundle, host_batch)
+        del rbundle
+        bench = timed("bench", phase_bench,
+                      os.path.join(rehearsal_dir, "models"))
+        parity_recipe = timed("parity", phase_parity,
+                              os.path.join(rehearsal_dir, "models"),
+                              rehearsal_dir)
+    finally:
+        shutil.rmtree(seeded_dir, ignore_errors=True)
+        shutil.rmtree(rehearsal_dir, ignore_errors=True)
+    bench_launches = bench["line"]["hot_path"]["launches"]
     for r in rows:
         r["launches_by_path"] = {
             "transcription": r["launches"],
             "engine": engine["launches"][r["name"]],
             "overlap_engine": overlap["launches"][r["name"]],
             "word_timestamps": overlap["align"]["launches"][r["name"]],
-            "serve": serve["launches"][r["name"]]}
+            "serve": serve["launches"][r["name"]],
+            "rehearsal": rehearsal["launches"][BENCH_KEY[r["name"]]],
+            "int4": int4["launches"][BENCH_KEY[r["name"]]],
+            "bench_hot_path": bench_launches[BENCH_KEY[r["name"]]],
+            "parity": parity_recipe["launches"][BENCH_KEY[r["name"]]]}
 
     report = {"card": card, "build_s": build_s, "sass": sass, "kernels": rows,
               "kernel_extra": kernel_extra, "slice": slice_res,
               "main_calls": calls, "breakdown": breakdown, "engine": engine,
               "engine_parity": parity, "overlap": overlap,
               "overlap_parity": overlap_parity, "serve": serve,
+              "rehearsal": rehearsal, "int4": int4, "bench": bench,
+              "parity": parity_recipe,
               "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as fh:

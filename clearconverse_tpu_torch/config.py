@@ -69,7 +69,7 @@ class TorchConfig:
     logprob_threshold: float = -1.0
     # Pad every segment to whisper's full 30 s window (reference numerics).
     pad_to_full_window: bool = True
-    # Cross-attention KV storage width (16 or 8).
+    # Cross-attention KV storage width (16, 8 or 4).
     cross_kv_bits: int = 8
     # Self-attention cache width (16 or 8).
     self_kv_bits: int = 16

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from clearconverse_tpu_torch.models.whisper import (
     Whisper, WhisperDims, decoder_forward, init_kv_cache, precompute_cross_kv,
-    whisper_encode,
+    unpack_codes, whisper_encode,
 )
 from clearconverse_tpu_torch.utils.tracing import StageTimer
 
@@ -45,7 +45,7 @@ class DecodeOptions:
     # the timestamp range in notimestamps decoding).
     suppress_tokens: Tuple[int, ...] = ()
     compute_dtype: Any = torch.float32
-    # Cross-attention K/V storage width (16 or 8 bits).
+    # Cross-attention K/V storage width (16, 8 or 4 bits).
     cross_kv_bits: int = 16
     # Self-attention cache width (16 or 8).
     self_kv_bits: int = 16
@@ -219,10 +219,11 @@ def _span(timer: Optional[StageTimer], name: str):
 
 
 def _widen_codes(ckv: Dict[str, Any], cdt: torch.dtype) -> Dict[str, Any]:
-    """int8 cross-KV codes → the compute dtype, once per call. |code| <= 127
-    is exact in bf16 and f32, so the decode numerics are those of the int8
+    """int8 or packed int4 cross-KV codes → the compute dtype, once per
+    call (int4 unpacked here, with both nibbles sign-extended). |code| <=
+    127 is exact in bf16 and f32, so the decode numerics are those of the
     codes; the per-step cast of the JAX version becomes a no-op."""
-    return {name: ({"q": val["q"].to(cdt), "scale": val["scale"]}
+    return {name: ({"q": unpack_codes(val).to(cdt), "scale": val["scale"]}
                    if isinstance(val, dict) else val)
             for name, val in ckv.items()}
 
@@ -312,7 +313,8 @@ def greedy_decode(
     ``no_speech_prob`` is zeros unless opts.no_speech_token is set;
     ``steps`` (a host int) counts the token positions decoded. ``timer``,
     when given, records the stages' spans (gather, log_mel, encoder,
-    cross_kv, prefill, token_loop)."""
+    cross_kv, prefill, token_loop) and counts the loop's steps
+    (``token_loop_steps``)."""
     prompt_tokens = prompt_tokens.long()
     prompt_lens = prompt_lens.long()
     B, P = prompt_tokens.shape
@@ -373,6 +375,8 @@ def greedy_decode(
             prev, prev2 = nxt, prev
             step += 1
 
+    if timer is not None:
+        timer.count("token_loop_steps", step - 1)
     out = _finalize_decode(tokens, slp, no_speech_prob, opts)
     out["steps"] = step      # loop steps taken = host syncs on the stop flag
     return out

@@ -335,6 +335,48 @@ def convert_speechbrain_ecapa(sd: Dict[str, Any]) -> Dict[str, Any]:
     return p
 
 
+def ecapa_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's ECAPA weights (``ecapa_from_jax_params``: tensors, conv
+    ``w`` [out, in, k]) → the speechbrain ``embedding_model.ckpt`` names as
+    f32 numpy arrays: the exact inverse of ``convert_speechbrain_ecapa``,
+    BatchNorm running statistics included."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def a(v):
+        return np.ascontiguousarray(v.detach().cpu().numpy(), np.float32)
+
+    def conv(prefix, p):
+        sd[f"{prefix}.weight"] = a(p["w"])
+        sd[f"{prefix}.bias"] = a(p["b"])
+
+    def bn(prefix, p):
+        for name, key in (("weight", "g"), ("bias", "b"),
+                          ("running_mean", "mean"), ("running_var", "var")):
+            sd[f"{prefix}.{name}"] = a(p[key])
+
+    conv("blocks.0.conv.conv", params["conv1"])
+    bn("blocks.0.norm.norm", params["bn1"])
+    for bi, blk in enumerate(params["blocks"], start=1):
+        pre = f"blocks.{bi}"
+        conv(f"{pre}.tdnn1.conv.conv", blk["conv_in"])
+        bn(f"{pre}.tdnn1.norm.norm", blk["bn_in"])
+        for i, (c, b) in enumerate(zip(blk["res2"], blk["res2_bn"])):
+            conv(f"{pre}.res2net_block.blocks.{i}.conv.conv", c)
+            bn(f"{pre}.res2net_block.blocks.{i}.norm.norm", b)
+        conv(f"{pre}.tdnn2.conv.conv", blk["conv_out"])
+        bn(f"{pre}.tdnn2.norm.norm", blk["bn_out"])
+        conv(f"{pre}.se_block.conv1.conv", blk["se"]["fc1"])
+        conv(f"{pre}.se_block.conv2.conv", blk["se"]["fc2"])
+    conv("mfa.conv.conv", params["mfa"])
+    bn("mfa.norm.norm", params["mfa_bn"])
+    conv("asp.tdnn.conv.conv", params["asp"]["conv1"])
+    bn("asp.tdnn.norm.norm", params["asp"]["bn1"])
+    conv("asp.conv.conv", params["asp"]["conv2"])
+    bn("asp_bn.norm", params["asp_bn"])
+    conv("fc.conv", params["fc"])
+    return sd
+
+
 def infer_ecapa_dims(params: Dict[str, Any],
                      fallback: EcapaDims = EcapaDims()) -> EcapaDims:
     """Dims recoverable from a converted pytree's shapes; the dilations come

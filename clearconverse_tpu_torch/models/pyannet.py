@@ -314,6 +314,50 @@ def convert_pyannote_pyannet(sd: Dict[str, Any]) -> Dict[str, Any]:
     return p
 
 
+def pyannet_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's PyanNet weights (``pyannet_from_jax_params``) → pyannote's
+    lightning state-dict names as f32 numpy arrays: the exact inverse of
+    ``convert_pyannote_pyannet``. The ``nn.LSTM`` already carries pyannote's
+    per-direction names (``weight_ih_l{i}``, ``..._reverse``) and the i, f,
+    g, o gate order; the converter sums the two biases, so the whole bias
+    goes to ``bias_ih`` and ``bias_hh`` is zero, as the JAX writer does. The
+    band parameters take pyannote 3.x's ``.filterbank.`` nesting, [nb, 1]."""
+    sn = params["sincnet"]
+
+    def a(v):
+        return np.ascontiguousarray(v.detach().cpu().numpy(), np.float32)
+
+    sd: Dict[str, np.ndarray] = {
+        "sincnet.wav_norm1d.weight": a(sn["wav_norm"]["g"]),
+        "sincnet.wav_norm1d.bias": a(sn["wav_norm"]["b"]),
+        "sincnet.conv1d.0.filterbank.low_hz_": a(sn["low_hz"].reshape(-1, 1)),
+        "sincnet.conv1d.0.filterbank.band_hz_": a(sn["band_hz"].reshape(-1, 1)),
+    }
+    for i in range(3):
+        sd[f"sincnet.norm1d.{i}.weight"] = a(sn[f"norm{i}"]["g"])
+        sd[f"sincnet.norm1d.{i}.bias"] = a(sn[f"norm{i}"]["b"])
+    for i in (1, 2):
+        sd[f"sincnet.conv1d.{i}.weight"] = a(sn[f"conv{i}"]["w"])
+        sd[f"sincnet.conv1d.{i}.bias"] = a(sn[f"conv{i}"]["b"])
+    sd["classifier.weight"] = a(params["classifier"]["w"].T)
+    sd["classifier.bias"] = a(params["classifier"]["b"])
+    lstm = params["lstm"]
+    for li in range(lstm.num_layers):
+        for suffix in ("", "_reverse"):
+            sd[f"lstm.weight_ih_l{li}{suffix}"] = a(
+                getattr(lstm, f"weight_ih_l{li}{suffix}"))
+            sd[f"lstm.weight_hh_l{li}{suffix}"] = a(
+                getattr(lstm, f"weight_hh_l{li}{suffix}"))
+            bias = a(getattr(lstm, f"bias_ih_l{li}{suffix}")
+                     + getattr(lstm, f"bias_hh_l{li}{suffix}"))
+            sd[f"lstm.bias_ih_l{li}{suffix}"] = bias
+            sd[f"lstm.bias_hh_l{li}{suffix}"] = np.zeros_like(bias)
+    for i, lin in enumerate(params["linear"]):
+        sd[f"linear.{i}.weight"] = a(lin["w"].T)
+        sd[f"linear.{i}.bias"] = a(lin["b"])
+    return sd
+
+
 def infer_pyannet_dims(params: Dict[str, Any],
                        fallback: PyannetDims = PyannetDims()) -> PyannetDims:
     """Dims recoverable from a converted pytree's shapes; the sinc kernel,

@@ -239,10 +239,11 @@ def precompute_cross_kv(model: Whisper, audio: torch.Tensor, n_head: int,
                         bits: int = 16) -> List[Dict[str, Any]]:
     """Per-layer cross-attention K/V from the encoder output, computed once
     per segment and re-read every decode step, in the head-major decode
-    layout: K [B, H, dh, T], V [B, H, T, dh]. ``bits=8`` stores int8 codes
-    with per-channel f32 scales (amax over T)."""
-    if bits not in (8, 16):
-        raise ValueError(f"cross-KV width must be 16 or 8, got {bits}")
+    layout: K [B, H, dh, T], V [B, H, T, dh]. ``bits`` is 16, 8 or 4: 8 and
+    4 store integer codes with per-channel f32 scales (amax over T); int4
+    codes are packed two a byte along the last axis (``_quant_kv``)."""
+    if bits not in (16, 8, 4):
+        raise ValueError(f"cross-KV width must be 16, 8 or 4, got {bits}")
     return [_head_major_kv_direct(audio, blk.cross, n_head, bits)
             for blk in model.decoder.blocks]
 
@@ -255,24 +256,53 @@ def _head_major_kv_direct(audio: torch.Tensor, cross: _Attention,
     kt = dense(audio, cross.k).view(B, T, n_head, dh).permute(0, 2, 3, 1)
     vt = dense(audio, cross.v).view(B, T, n_head, dh).permute(0, 2, 1, 3)
     kt, vt = kt.contiguous(), vt.contiguous()
-    if bits == 8:
+    if bits in (8, 4):
         return {"k8t": _quant_kv(kt, bits, axis=-1),
                 "v8t": _quant_kv(vt, bits, axis=-2)}
     return {"kt": kt, "vt": vt}
 
 
-def _quant_kv(x: torch.Tensor, bits: int = 8, axis: int = -2) -> Dict[str, torch.Tensor]:
-    """int8 values + per-channel scales (amax over ``axis``, the T axis:
-    -2 for [..., T, D] layouts, -1 for head-major K [..., dh, T]).
-    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
-    if bits != 8:
-        raise ValueError(f"only int8 quantization is ported, got {bits}")
-    qmax = 127.0
+def _quant_kv(x: torch.Tensor, bits: int = 8, axis: int = -2) -> Dict[str, Any]:
+    """int8/int4 values + per-channel scales (amax over ``axis``, the T
+    axis: -2 for [..., T, D] layouts, -1 for head-major K [..., dh, T]).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+    Torch has no int4 tensor: ``bits=4`` returns ``{"q4": packed, "n":
+    last-axis length, "scale"}`` with the codes (|code| <= 7) packed two a
+    byte along the last axis by ``pack_int4``; ``unpack_codes`` reverses it.
+    The leading axes are unchanged, so the batch axis reads as for int8."""
+    if bits not in (8, 4):
+        raise ValueError(f"cross-KV quantization takes 8 or 4 bits, got {bits}")
+    qmax = 127.0 if bits == 8 else 7.0
     x32 = x.float()
     amax = x32.abs().amax(dim=axis, keepdim=True)
     scale = torch.clamp(amax / qmax, min=1e-12)
-    q = torch.clamp(torch.round(x32 / scale), -qmax, qmax)
-    return {"q": q.to(torch.int8), "scale": scale}
+    q = torch.clamp(torch.round(x32 / scale), -qmax, qmax).to(torch.int8)
+    if bits == 4:
+        return {"q4": pack_int4(q), "n": q.shape[-1], "scale": scale}
+    return {"q": q, "scale": scale}
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-8, 7] → int8 bytes holding two codes each along the
+    last axis: element 2j in the low nibble, 2j+1 in the high one. An odd
+    last axis is padded with one zero code."""
+    if q.shape[-1] % 2:
+        q = F.pad(q, (0, 1))
+    return (q[..., 1::2] << 4) | (q[..., 0::2] & 0x0F)
+
+
+def unpack_codes(p: Dict[str, Any]) -> torch.Tensor:
+    """The int8 codes of a ``_quant_kv`` entry: as stored for int8; for
+    int4 both nibbles sign-extended (the low one as ``(b << 4) >> 4``, the
+    high one as ``b >> 4``, arithmetic shifts of int8) and interleaved back
+    to the ``n`` codes of the last axis."""
+    if "q" in p:
+        return p["q"]
+    b = p["q4"]
+    lo, hi = (b << 4) >> 4, b >> 4
+    codes = torch.stack([lo, hi], dim=-1).flatten(-2)
+    return codes[..., : p["n"]]
 
 
 def _cross_attention_head_major(q: torch.Tensor, ckv: Dict[str, Any],
@@ -288,7 +318,7 @@ def _cross_attention_head_major(q: torch.Tensor, ckv: Dict[str, Any],
     once per replica."""
     B, Tq, Dm = q.shape
     dh = Dm // n_head
-    kv_b = (ckv["k8t"]["q"] if "k8t" in ckv else ckv["kt"]).shape[0]
+    kv_b = (ckv["k8t"]["scale"] if "k8t" in ckv else ckv["kt"]).shape[0]
     rep = B // kv_b
     if rep > 1:
         if mask is not None:
@@ -300,8 +330,8 @@ def _cross_attention_head_major(q: torch.Tensor, ckv: Dict[str, Any],
     if "k8t" in ckv:
         kscale = ckv["k8t"]["scale"].transpose(-1, -2)        # [B,H,1,dh]
         qs = (qh.float() * kscale * dh ** -0.5).to(cdt)
-        kt = ckv["k8t"]["q"].to(cdt)
-        vt = ckv["v8t"]["q"].to(cdt)
+        kt = unpack_codes(ckv["k8t"]).to(cdt)
+        vt = unpack_codes(ckv["v8t"]).to(cdt)
         vscale = ckv["v8t"]["scale"]                          # [B,H,1,dh]
     else:
         qs = qh * dh ** -0.5

@@ -32,6 +32,12 @@ class StageTimer:
         self.spans: List[Tuple[str, float]] = []
         self._totals: Optional[Dict[str, float]] = {} if totals_only else None
         self._sync = sync
+        # Event counts beside the spans (e.g. the token loop's steps, so a
+        # reader can turn its span into a time per step).
+        self.counts: Dict[str, int] = {}
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counts[name] = self.counts.get(name, 0) + n
 
     @contextlib.contextmanager
     def stage(self, name: str):

@@ -1,7 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, the wrappers' input checks, and a tiny transcription on the card
-against the same on the CPU. Every test needs a CUDA card and skips without
-one.
+version, the wrappers' input checks, a tiny transcription (and an int4
+cross-KV decode) on the card against the same on the CPU, the speaker and
+separation models card vs CPU, a tiny dress-rehearsal round trip on the card
+and the bench's hot-path line. Every test needs a CUDA card and skips
+without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without JAX. tests/conftest.py imports JAX, so there run it as:
@@ -334,3 +336,74 @@ def test_separate_batch_on_card_matches_cpu(cuda):
         assert np.isfinite(out).all()
         outs.append(out)
     np.testing.assert_allclose(outs[0], outs[1], rtol=1e-3, atol=1e-4)
+
+
+# ---------------------------- int4 cross-KV, dress rehearsal, the bench
+
+def test_int4_cross_kv_card_matches_cpu(cuda):
+    """f32, t=0, cross_kv_bits=4, 64-wide heads so K2 runs: identical decode
+    tokens on the card and the CPU."""
+    from clearconverse_tpu_torch.models import decoding
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.whisper import WhisperDims
+
+    dims = WhisperDims(n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+                       n_text_state=128, n_text_head=2, n_text_layer=2)
+    audio = _randn((3, 24000), 5, 0.1)
+    toks, lens = decoding.build_prompt_batch(
+        [[50257, 50362], [50360, 7, 50257, 50362], [50257, 50362]], 4, 50256)
+    opts = decoding.DecodeOptions(max_tokens=10, suppress_tokens=tuple(
+        range(50257, 51864)), no_speech_token=50361, cross_kv_bits=4)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = init_whisper(dims, seed=3, device="cpu").to(dev)
+        res = decoding.greedy_decode_from_audio(
+            model, audio.to(dev), torch.from_numpy(toks).to(dev),
+            torch.from_numpy(lens).to(dev), dims, opts, 4)
+        out[dev.type] = (res["tokens"].cpu(), res["lengths"].cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+def test_dress_rehearsal_round_trip_on_card(cuda, tmp_path):
+    """populate(tiny, device="cuda") → a cold ModelBundle on the card loads
+    every family as checkpoint, and the Whisper it loads equals the
+    fp16-rounded module that was written."""
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.eval import dress_rehearsal
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+
+    dress_rehearsal.populate(str(tmp_path), tiny=True, seed=5, device="cuda")
+    b = ModelBundle(Config(), TorchConfig(compute_dtype="float32"),
+                    model_dir=str(tmp_path), device=cuda)
+    assert b.load_with_progress()
+    assert b.load_source == {"whisper": "checkpoint",
+                             "tokenizer": "BPETokenizer",
+                             "ecapa": "checkpoint", "pyannet": "checkpoint",
+                             "sepformer": "checkpoint"}
+    model, dims, _ = b._whisper
+    written = init_whisper(dims, 5, cuda)
+    got = dict(model.named_parameters())
+    for name, p in written.named_parameters():
+        assert got[name].is_cuda
+        assert torch.equal(got[name], p.detach().half().float()), name
+
+
+def test_bench_hot_path_line_on_card(cuda, capsys):
+    """``bench --skip-engine`` at B=2: one JSON line, K1 and K2 launched,
+    a step time and a peak memory, and the card's name and power limit."""
+    import json
+
+    from clearconverse_tpu_torch import bench
+
+    assert bench.main(["--model", "tiny.en", "--batch", "2",
+                       "--decode-tokens", "4", "--iters", "1",
+                       "--skip-engine"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 and len(lines[0]) < 2000
+    line = json.loads(lines[0])
+    hot = line["hot_path"]
+    assert line["value"] > 0 and "," in line["card"]
+    assert hot["launches"]["k1"] > 0 and hot["launches"]["k2"] > 0
+    assert hot["step_ms"] > 0 and hot["peak_mem_gb"] > 0

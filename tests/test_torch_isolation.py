@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no file of clearconverse_tpu_torch/ (nor
 chip_smoke.py) imports jax or the JAX package, and a tiny transcription,
-the engine's default pass on one short file, one separation and the
-server's import run in a process where both are refused at import."""
+the engine's default pass on one short file, one separation, the server's,
+the bench's, the eval package's and the entry's imports, and a tiny
+dress-rehearsal set written and loaded back run in a process where both are
+refused at import."""
 
 import ast
 import os
@@ -110,6 +112,21 @@ _SCRIPT = textwrap.dedent("""
     assert sep.shape == (2, 8000, 2), sep.shape
     import clearconverse_tpu_torch.serve.app  # noqa: F401
     assert "requests" not in sys.modules
+
+    # The bench, the eval package, the parity recipe and the entry, and a
+    # tiny dress-rehearsal set written on the CPU and loaded back.
+    import clearconverse_tpu_torch.bench  # noqa: F401
+    import clearconverse_tpu_torch.eval  # noqa: F401
+    import clearconverse_tpu_torch.eval.parity  # noqa: F401
+    import clearconverse_tpu_torch.entry  # noqa: F401
+    from clearconverse_tpu_torch.eval import dress_rehearsal
+    model_dir = tempfile.mkdtemp()
+    assert dress_rehearsal.main(["--model-dir", model_dir, "--tiny",
+                                 "--device", "cpu"]) == 0
+    loaded = ModelBundle(torch_config=TorchConfig(), model_dir=model_dir,
+                         device="cpu")
+    assert loaded.load_with_progress()
+    assert set(loaded.load_source.values()) == {"checkpoint", "BPETokenizer"}
     leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "clearconverse_tpu" or m.startswith("clearconverse_tpu.")]
     assert not leaked, leaked
