@@ -9,7 +9,10 @@ Phases, each fatal on failure:
   2. kernels — hold each kernel against its plain PyTorch version on the card
                at the main path's shapes (K1 on noise and on speech with
                silence; K1 and K2 bf16 also at the engine's batch of 32 and
-               the bench hot path's of 128), and time kernel, plain version
+               the bench hot path's of 128; K1 at the train CLI's one row;
+               K2 bf16 at the train step's B=4 and B=2 through its autograd
+               Function, output and q/k/v gradients against autograd
+               through the plain version), and time kernel, plain version
                and, where one exists, the single PyTorch library call;
   3. slice   — a 2-layer model at small.en's full width, f32: transcribe_batch
                at t=0 on the card (kernels) and on the CPU (plain versions);
@@ -80,6 +83,35 @@ Phases, each fatal on failure:
                .ref.txt come from a fresh engine on the rehearsal
                checkpoints (with the crafted PyanNet in pyannote's format):
                the base row reads WER 0 and DER 0; the levers' deltas.
+ 14. train   — python -m clearconverse_tpu_torch.train in this process at
+               small.en on the rehearsal checkpoints and 8 synthetic
+               (wav, txt) pairs of 3-30 s, --batch 4 --steps 5 --max_tokens
+               128, once plain and once with --remat --accum_steps 2: every
+               printed loss finite, K2 launches >= 12 per step and K1 one
+               per pair; step time, target tokens/s and peak memory of
+               each. After the plain run, a fresh card ModelBundle (f32)
+               on the base and the exported whisper-ft overlay must hold
+               the trained module exactly (max error 0) and log no overlay
+               fallback, and a plain step is split into forward, backward
+               and AdamW (its state is freed before the remat run);
+ 15. train card vs CPU — 2 layers at small.en width, f32, one
+               whisper_loss_sums with backward and one optimizer step from
+               the same seeded weights and batch: loss within 1e-4
+               relative, every gradient within 1e-3 of its largest entry,
+               no parameter with a nonzero CPU gradient left at zero on the
+               card (a K2 output without a backward), and the step's update
+               (parameters after minus before) within 5e-6 of the CPU's
+               wherever the CPU gradient exceeds 1e-3 of its parameter's
+               largest (a first AdamW step moves such an entry by about
+               lr = 1e-5, so a step left out or of the wrong sign fails);
+ 16. beam/language/native — beam_size 5 at t=0 on a 2-layer small.en-width
+               f32 model: identical tokens and texts card vs CPU; then
+               phase 4's segments at full width on the rehearsal bundle,
+               beam_size 5 at t=0 and the default t=0.1 best_of 5 call in
+               turns (K1 and K2 must launch); detect_language_from_audio on
+               a 2-layer multilingual small model: identical ids card vs
+               CPU; save_native then load_native of the rehearsal bundle:
+               max error 0 and equal dims.
 Then it prints the kernels JSON line, the card's name and power limit, and,
 last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -211,7 +243,7 @@ def phase_kernels(gen: torch.Generator):
     frame_flops = (400 + 2.5 * 400 * math.log2(400) + 3 * 201
                    + 2 * int(np.count_nonzero(melmod.mel_filterbank(80))))
     k1_rows, k1_bounds = {}, {}
-    for B in (N_SEG, 32, 128):
+    for B in (1, N_SEG, 32, 128):   # 1: the train CLI's data prep, per pair
         inputs = {
             "noise": torch.randn((B, WINDOW), generator=gen, device="cuda") * 0.1,
             "speech": torch.from_numpy(np.stack([
@@ -252,7 +284,7 @@ def phase_kernels(gen: torch.Generator):
         del inputs, audio
     rows.append(k1_rows[N_SEG])
     extra = {f"mel_power_b{B}": {key: val for key, val in k1_rows[B].items()
-                                 if key != "launches"} for B in (32, 128)}
+                                 if key != "launches"} for B in (1, 32, 128)}
     extra["mel_power_other_bounds"] = k1_bounds
 
     # K2 at T=1500, D=768, H=12: bf16 (the main path's dtype) at B=N_SEG, at
@@ -316,7 +348,56 @@ def phase_kernels(gen: torch.Generator):
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
     log(f"[kernels] encoder_attention f32 {(N_SEG, T, D)}: "
         f"{extra['encoder_attention_f32_ms']:.4f} ms")
+    extra["encoder_attention_train"] = k2_train_check(gen)
     return rows, extra
+
+
+def k2_train_check(gen: torch.Generator):
+    """K2 at the train step's shapes, bf16, through its autograd Function:
+    B=4 (the train CLI's --batch 4) and B=2 (its microbatch under
+    --accum_steps 2). The output against the plain version at phase 2's
+    atol 2e-3; the q, k, v gradients of a fixed cotangent against autograd
+    through the plain version within 3e-2 of the largest gradient. The
+    Function's backward recomputes through models/whisper.attention, which
+    scales q and k by dh^-0.25 each in bf16 where the plain version scales
+    q by dh^-0.5: on the CPU the two backwards differ by up to 8e-3 of the
+    largest gradient at these shapes."""
+    from clearconverse_tpu_torch.ops import encoder_attention as k2
+
+    T, D, H = 1500, 768, 12
+    res = {}
+    for B in (4, 2):
+        q, k, v = (torch.randn((B, T, D), generator=gen, device="cuda")
+                   .mul_(scale).bfloat16() for scale in (1.0, 1.0, 0.3))
+        g = torch.randn((B, T, D), generator=gen, device="cuda").bfloat16()
+        outs, grads = {}, {}
+        for label, fn in (("kernel", k2.encoder_attention),
+                          ("plain", k2.encoder_attention_plain)):
+            ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = fn(*ins, H)
+            if out.grad_fn is None:
+                raise SystemExit(f"K2 {label} output at B={B} has no grad_fn")
+            grads[label] = torch.autograd.grad(out, ins, g)
+            outs[label] = out.detach().float()
+        torch.cuda.synchronize()
+        err = float((outs["kernel"] - outs["plain"]).abs().max())
+        grad_rel = {
+            name: float((a.float() - b.float()).abs().max())
+            / float(b.float().abs().max())
+            for name, a, b in zip("qkv", grads["kernel"], grads["plain"])}
+        finite = all(bool(torch.isfinite(a).all()) for a in grads["kernel"])
+        ok = err <= 2e-3 and finite and max(grad_rel.values()) <= 3e-2
+        log(f"[kernels] K2 encoder_attention {(B, T, D)} bf16 with grad: "
+            f"output max err {err:.3g} (atol 2e-3), q/k/v gradient max err "
+            f"of the largest {grad_rel} (limit 3e-2) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("K2's autograd Function disagrees with the "
+                             "plain version at the train shapes")
+        res[f"B={B}"] = {"max_abs_err": err, "grad_rel_err": grad_rel}
+        del q, k, v, g, outs, grads
+    torch.cuda.empty_cache()
+    return res
 
 
 def synth_speech(rng: np.random.Generator, seconds: float) -> np.ndarray:
@@ -1575,6 +1656,483 @@ def phase_parity(model_dir: str, tmp: str):
             "rows": report["rows"], "levers": levers, "launches": launches}
 
 
+# ----------------------------------- fine-tuning, beam, language, native
+
+N_PAIRS = 8
+TRAIN_ARGS = ["--model", "small.en", "--batch", "4", "--steps", "5",
+              "--max_tokens", "128"]
+WORDS = ("the quick brown fox jumps over a lazy dog while seven bright "
+         "birds sing near the quiet river at dawn").split()
+
+
+def write_pairs(data_dir: str) -> float:
+    """N_PAIRS (wav, txt) pairs of 3-30 s of synthetic speech; returns the
+    audio seconds."""
+    from clearconverse_tpu_torch.audio.wav import write_wav
+    rng = np.random.default_rng(7)
+    secs = np.linspace(3.0, 30.0, N_PAIRS)
+    for i, s in enumerate(secs):
+        write_wav(os.path.join(data_dir, f"pair{i}.wav"),
+                  synth_speech(rng, float(s)), SR)
+        words = rng.choice(WORDS, int(2 * s))
+        with open(os.path.join(data_dir, f"pair{i}.txt"), "w") as fh:
+            fh.write(" ".join(words))
+    return float(secs.sum())
+
+
+def run_train_cli(argv):
+    """``python -m clearconverse_tpu_torch.train`` in this process with the
+    launch counts set to 0 first. Records the train state the CLI builds
+    and each step's device time (a synchronize on both sides of the step)
+    and masked target tokens. Returns (stdout, state, steps, launches,
+    peak GB, the last batch)."""
+    import contextlib
+    import io
+    from clearconverse_tpu_torch.ops import encoder_attention as k2
+    from clearconverse_tpu_torch.ops import logmel as k1
+    from clearconverse_tpu_torch.train import finetune
+    from clearconverse_tpu_torch.train.__main__ import main as train_main
+
+    states, steps, batches = [], [], []
+    orig_init, orig_make = finetune.init_train_state, finetune.make_train_step
+
+    def init_recorded(*a, **kw):
+        states.append(orig_init(*a, **kw))
+        return states[-1]
+
+    def make_timed(*a, **kw):
+        step = orig_make(*a, **kw)
+
+        def timed_step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"s": time.perf_counter() - t0,
+                          "tokens": float(batch["loss_mask"].sum())})
+            batches[:] = [batch]
+            return out
+        return timed_step
+
+    finetune.init_train_state = init_recorded
+    finetune.make_train_step = make_timed
+    out = io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k1.mel_power.launches = 0
+    k2.encoder_attention.launches = 0
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train_main(argv)
+    finally:
+        finetune.init_train_state = orig_init
+        finetune.make_train_step = orig_make
+    launches = {"mel_power": k1.mel_power.launches,
+                "encoder_attention": k2.encoder_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        raise SystemExit(f"train CLI exited {rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue(), states[-1], steps, launches, peak, batches[0]
+
+
+def train_step_split(state, batch, reps: int = 3):
+    """Device time of the three parts of a plain train step on ``state``
+    (bf16 compute): the loss forward, its backward and the clipped AdamW
+    update, each ended by a synchronize (median of ``reps``); and K2's
+    autograd Function alone at the step's shapes, forward and backward."""
+    from clearconverse_tpu_torch.ops import encoder_attention as k2
+    from clearconverse_tpu_torch.train import finetune as ft
+
+    dims = state.model.dims
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(reps):
+        state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, (n, _) = ft.whisper_loss_sums(state.model, batch, dims,
+                                         torch.bfloat16)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            for p in state.model.parameters():
+                p.grad.div_(n)
+        state.optimizer.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(1e3 * dt)
+    split = {k: float(np.median(v)) for k, v in parts.items()}
+    B, D = batch["mel"].shape[0], dims.n_audio_state
+    q, k, v = (torch.randn((B, 1500, D), device="cuda", dtype=torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    g = torch.randn((B, 1500, D), device="cuda", dtype=torch.bfloat16)
+    split["k2_forward_ms"] = time_ms(
+        lambda: k2.encoder_attention(q, k, v, dims.n_audio_head), iters=5)
+    split["k2_forward_backward_ms"] = time_ms(
+        lambda: torch.autograd.grad(
+            k2.encoder_attention(q, k, v, dims.n_audio_head), (q, k, v), g),
+        iters=5)
+    return split
+
+
+def phase_train(model_dir: str, tmp: str):
+    """The fine-tune CLI at small.en on the rehearsal checkpoints, plain and
+    with --remat --accum_steps 2. After the plain run (whose state is freed
+    before the remat run starts, so the two peaks compare): a fresh card
+    ModelBundle on the base plus the exported overlay, and the step's split
+    into forward, backward and optimizer."""
+    data = os.path.join(tmp, "train_pairs")
+    os.makedirs(data)
+    audio_s = write_pairs(data)
+    n_steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    runs, check = {}, {}
+    for label, extra in (("plain", []),
+                         ("remat", ["--remat", "--accum_steps", "2"])):
+        export = os.path.join(tmp, f"train_{label}")
+        t0 = time.perf_counter()
+        text, state, steps, launches, peak, batch = run_train_cli(
+            ["--data_dir", data, "--model_dir", model_dir, "--export", export,
+             *TRAIN_ARGS, *extra])
+        wall = time.perf_counter() - t0
+        for line in text.strip().splitlines():
+            log(f"[train] {label}: {line}")
+        losses = [float(line.split("loss=")[1].split()[0])
+                  for line in text.splitlines() if "loss=" in line]
+        step_ms = 1e3 * float(np.median([s["s"] for s in steps[1:]]))
+        tok_s = float(np.median([s["tokens"] / s["s"] for s in steps[1:]]))
+        runs[label] = {"wall_s": wall, "losses": losses,
+                       "first_step_ms": 1e3 * steps[0]["s"],
+                       "step_ms": step_ms, "step_ms_all":
+                       [1e3 * s["s"] for s in steps],
+                       "target_tokens_per_s": tok_s, "peak_mem_gb": peak,
+                       "launches": launches}
+        log(f"[train] {label}: {N_PAIRS} pairs ({audio_s:.0f} s of audio), "
+            f"{n_steps} steps of batch 4 in {wall:.1f} s (model load and "
+            f"data prep included): first step {1e3 * steps[0]['s']:.1f} ms, "
+            f"then median {step_ms:.1f} ms, {tok_s:.0f} target tokens/s, "
+            f"peak {peak:.2f} GB, kernel launches {launches}")
+        if (len(losses) != 2 or not all(math.isfinite(x) for x in losses)
+                or len(steps) != n_steps
+                or launches["encoder_attention"]
+                < state.model.dims.n_audio_layer * n_steps
+                or launches["mel_power"] < N_PAIRS):
+            raise SystemExit(f"train {label}: bad losses {losses} or "
+                             f"launches {launches}")
+        if label == "plain":
+            check = check_overlay(model_dir, tmp, state.model,
+                                  os.path.join(export, "whisper-ft"))
+            runs[label]["split_ms"] = split = train_step_split(state, batch)
+            log(f"[train] plain step split (ms, medians of 3): forward "
+                f"{split['forward']:.1f}, backward {split['backward']:.1f}, "
+                f"AdamW with the clip {split['optimizer']:.1f}; K2 alone at "
+                f"B=4 bf16: forward {split['k2_forward_ms']:.3f}, forward + "
+                f"backward {split['k2_forward_backward_ms']:.3f}")
+        del state, batch
+        torch.cuda.empty_cache()
+    return {"audio_s": audio_s, "args": TRAIN_ARGS, "runs": runs, **check}
+
+
+def check_overlay(model_dir: str, tmp: str, trained, overlay: str):
+    """A fresh card ModelBundle (f32) on the base checkpoint and the
+    exported ``overlay``: its Whisper must be the trained module exactly,
+    and the loader must log no overlay fallback."""
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+
+    ft_dir = os.path.join(tmp, "train_ft_models")
+    os.makedirs(ft_dir)
+    for name in os.listdir(model_dir):
+        if name != "whisper-ft":
+            os.symlink(os.path.join(model_dir, name), os.path.join(ft_dir, name))
+    os.symlink(overlay, os.path.join(ft_dir, "whisper-ft"))
+    warnings = _Errors()
+    warnings.setLevel(logging.WARNING)
+    logging.getLogger("clearconverse_tpu_torch").addHandler(warnings)
+    try:
+        bundle = ModelBundle(Config(), TorchConfig(compute_dtype="float32"),
+                             model_dir=ft_dir, device="cuda")
+        if not bundle.load_with_progress():
+            raise SystemExit("train: the overlay bundle did not load")
+    finally:
+        logging.getLogger("clearconverse_tpu_torch").removeHandler(warnings)
+    loaded = dict(bundle._whisper[0].named_parameters())
+    err = max(float((loaded[n] - p.detach()).abs().max())
+              for n, p in trained.named_parameters())
+    moved = max(float((loaded[n] - p.detach()).abs().max())
+                for n, p in _base_whisper(model_dir).named_parameters())
+    fallback = [r.getMessage() for r in warnings.records
+                if "whisper-ft" in r.getMessage()]
+    log(f"[train] fresh card ModelBundle on the base + overlay: load_source "
+        f"{bundle.load_source['whisper']}, max err against the trained "
+        f"module {err} (f32), max distance from the base {moved:.3g}, "
+        f"overlay warnings {fallback}")
+    if err != 0.0 or moved == 0.0 or fallback:
+        raise SystemExit("train: the bundle did not load the exported overlay")
+    del bundle, loaded
+    torch.cuda.empty_cache()
+    return {"overlay_max_err": err, "overlay_vs_base": moved}
+
+
+def _base_whisper(model_dir: str):
+    from clearconverse_tpu_torch.models.convert import load_whisper
+    model, _ = load_whisper(model_dir, "small.en", "cuda")
+    return model
+
+
+def _small_2layer(name: str = "small.en"):
+    from clearconverse_tpu_torch.models.whisper import model_dims
+    return dataclasses.replace(model_dims(name), n_audio_layer=2,
+                               n_text_layer=2)
+
+
+def phase_train_parity():
+    """One loss + backward and one optimizer step at 2 layers and small.en
+    width, f32, on the card (K2 forward, plain-recompute backward) and on
+    the CPU (plain versions), from the same seeded weights and batch."""
+    from clearconverse_tpu_torch.audio.mel import log_mel_spectrogram
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.ops import encoder_attention as k2
+    from clearconverse_tpu_torch.train import finetune as ft
+
+    dims = _small_2layer()
+    rng = np.random.default_rng(8)
+    audio = np.stack([np.pad(synth_speech(rng, s), (0, WINDOW - int(s * SR)))
+                      for s in (6.0, 17.0)])
+    mel = log_mel_spectrogram(torch.from_numpy(audio))
+    tokens = rng.integers(0, 50256, (2, 32))
+    mask = np.ones((2, 32), np.float32)
+    mask[1, 20:] = 0.0
+    base = init_whisper(dims, 11, "cpu")
+    before_step = {n: p.detach().float().clone()
+                   for n, p in ft.trainable_whisper(base).named_parameters()}
+    res = {}
+    before = k2.encoder_attention.launches
+    for dev in ("cuda", "cpu"):
+        model = ft.trainable_whisper(base).to(dev)
+        batch = {"mel": mel.to(dev), "tokens": torch.from_numpy(tokens).to(dev),
+                 "targets": torch.from_numpy(np.roll(tokens, -1, 1)).to(dev),
+                 "loss_mask": torch.from_numpy(mask).to(dev)}
+        s, _ = ft.whisper_loss_sums(model, batch, dims, torch.float32)
+        s.backward()
+        grads = {n: p.grad.cpu().clone() for n, p in model.named_parameters()}
+        state = ft.init_train_state(model)
+        ft.make_train_step(dims, compute_dtype=torch.float32)(state, batch)
+        res[dev] = (float(s.detach()), grads,
+                    {n: p.detach().cpu() for n, p in model.named_parameters()})
+        del model, state, batch
+    launched = k2.encoder_attention.launches - before
+    torch.cuda.empty_cache()
+    (sc, gc, pc), (s0, g0, p0) = res["cuda"], res["cpu"]
+    loss_rel = abs(sc - s0) / abs(s0)
+    grad_rel = max(float((gc[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                        1e-30)
+                   for n, g in g0.items() if float(g.abs().max()) > 0)
+    lost = [n for n, g in g0.items()
+            if float(g.abs().max()) > 0 and float(gc[n].abs().max()) == 0]
+    param_err = max(float((pc[n] - p).abs().max()) for n, p in p0.items())
+    upd = step_update_err(before_step, pc, p0, g0)
+    log(f"[train_parity] 2-layer d=768 f32, card vs CPU: loss {sc:.6f} vs "
+        f"{s0:.6f} (rel {loss_rel:.3g}, limit 1e-4), worst gradient error "
+        f"{grad_rel:.3g} of its largest (limit 1e-3), parameters with a "
+        f"nonzero CPU gradient and a zero card one: {lost}, one AdamW step: "
+        f"update max err {upd['max_err']:.3g} (limit 5e-6) over "
+        f"{upd['entries']} entries whose CPU gradient is above 1e-3 of its "
+        f"parameter's largest, where the CPU update is {upd['cpu_update_min']:.3g}"
+        f" to {upd['cpu_update_max']:.3g} in size (lr 1e-5); parameters "
+        f"max err over all entries {param_err:.3g}; K2 launches on the card "
+        f"{launched}")
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-3 and not lost
+            and upd["entries"] > 0 and upd["max_err"] <= 5e-6
+            and launched >= 2 * 2):
+        raise SystemExit("train parity: card and CPU disagree")
+    return {"loss": [sc, s0], "loss_rel": loss_rel, "grad_rel": grad_rel,
+            "zero_on_card": lost, "param_max_err": param_err,
+            "update": upd, "k2_launches": launched}
+
+
+def step_update_err(before, after_card, after_cpu, grad_cpu):
+    """The step's update, after minus before, card against CPU, over the
+    entries whose CPU gradient exceeds 1e-3 of its parameter's largest
+    (there a first AdamW step moves by about lr whatever the gradient's
+    size, so the comparison sees a missing or sign-flipped update)."""
+    err, n, lo, hi = 0.0, 0, math.inf, 0.0
+    for name, g in grad_cpu.items():
+        sel = g.abs() > 1e-3 * float(g.abs().max())
+        if not bool(sel.any()):
+            continue
+        d_card = (after_card[name] - before[name])[sel]
+        d_cpu = (after_cpu[name] - before[name])[sel]
+        err = max(err, float((d_card - d_cpu).abs().max()))
+        lo = min(lo, float(d_cpu.abs().min()))
+        hi = max(hi, float(d_cpu.abs().max()))
+        n += int(sel.sum())
+    return {"max_err": err, "entries": n, "cpu_update_min": lo,
+            "cpu_update_max": hi}
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, torch.nn.Module):
+        return {prefix + k: v for k, v in tree.state_dict().items()}
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat(v, f"{prefix}{k}.").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _flat(v, f"{prefix}{i}.").items()}
+    return {prefix: tree}
+
+
+def phase_beam_language_native(model_dir: str, tmp: str):
+    """Beam search card vs CPU at 2 layers, then at full width on phase 4's
+    segments (timed against the default best_of 5 call); language detection
+    card vs CPU on a 2-layer multilingual model; save_native/load_native
+    on the rehearsal bundle."""
+    from clearconverse_tpu_torch.bench import _measured
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.models import decoding
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.tokenizer import ByteFallbackTokenizer
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    from clearconverse_tpu_torch.utils.tracing import StageTimer
+
+    dims = _small_2layer()
+    cpu_model = init_whisper(dims, seed=1, device="cpu")
+    rng = np.random.default_rng(9)
+    audio = np.stack([np.pad(synth_speech(rng, s), (0, WINDOW - int(s * SR)))
+                      for s in (8.0, 21.0)])
+    cfg = TorchConfig(compute_dtype="float32", cross_kv_bits=16,
+                      max_decode_tokens=16, beam_size=5)
+    toks, lens = decoding.build_prompt_batch([[50257, 50362]] * 10, 4, 50256)
+    opts = decoding.DecodeOptions(max_tokens=16, suppress_tokens=tuple(
+        range(50257, 51864)), no_speech_token=50361, replicas=5, beam=True)
+    outs, counted = {}, {}
+    with _measured(torch.device("cuda"), counted):
+        for dev in ("cuda", "cpu"):
+            model = copy.deepcopy(cpu_model).to(dev)
+            dec = decoding.greedy_decode_from_audio(
+                model, torch.from_numpy(audio).to(dev),
+                torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
+                dims, opts, 4)
+            b = ModelBundle(torch_config=cfg, device=dev)
+            b._whisper = (model, dims, ByteFallbackTokenizer())
+            b._loaded = True
+            texts = b.transcribe_batch(audio, ["", "a prompt"],
+                                       temperature=0.0)
+            outs[dev] = (dec["tokens"].cpu(), dec["sum_logprob"].cpu(), texts)
+    same_tokens = torch.equal(outs["cuda"][0], outs["cpu"][0])
+    same_texts = outs["cuda"][2] == outs["cpu"][2]
+    slp_err = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
+    log(f"[beam] 2-layer d=768 f32 beam_size 5 t=0, card vs CPU: tokens "
+        f"identical {same_tokens}, texts identical {same_texts}, sum-logprob "
+        f"max err {slp_err:.3g}, kernel launches on the card "
+        f"{counted['launches']}")
+    if not (same_tokens and same_texts
+            and min(counted["launches"].values()) > 0):
+        raise SystemExit("beam: card and CPU disagree")
+
+    # Full width on phase 4's segments: beam_size 5 at t=0 against the
+    # default call (t=0.1, best_of 5), in turns.
+    bundle = ModelBundle(Config(), TorchConfig(), model_dir=model_dir,
+                         device="cuda")
+    if not bundle.load_with_progress():
+        raise SystemExit("beam: the rehearsal bundle did not load")
+    _, _, _, host_batch, audio_s = main_segments()
+    base = bundle.torch_config
+    calls = {"beam5_t0": [], "best_of5_t0.1": []}
+    steps = {"beam5_t0": [], "best_of5_t0.1": []}
+    launches = {}
+    for label in ("beam5_t0", "best_of5_t0.1", "best_of5_t0.1", "beam5_t0"):
+        beam = label.startswith("beam")
+        bundle.torch_config = dataclasses.replace(
+            base, beam_size=5 if beam else base.beam_size)
+        counted = {}
+        bundle.decode_timer = timer = StageTimer()
+        try:
+            with _measured(torch.device("cuda"), counted):
+                t0 = time.perf_counter()
+                texts = bundle.transcribe_batch(
+                    host_batch, [""] * N_SEG, temperature=0.0 if beam else 0.1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            bundle.torch_config = base
+            bundle.decode_timer = None
+        calls[label].append(wall)
+        steps[label].append(timer.counts.get("token_loop_steps", 0))
+        launches[label] = counted["launches"]
+        if len(texts) != N_SEG or not all(isinstance(t, str) for t in texts):
+            raise SystemExit(f"beam: bad transcribe_batch result ({label})")
+    log(f"[beam] full-width transcribe_batch on phase 4's {N_SEG} segments "
+        f"({audio_s:.1f} s): beam_size 5 t=0 {calls['beam5_t0']} s, default "
+        f"t=0.1 best_of 5 {calls['best_of5_t0.1']} s; token-loop steps "
+        f"{steps}; launches {launches}")
+    if min(launches["beam5_t0"].values()) == 0:
+        raise SystemExit("beam: a kernel was never launched")
+
+    # Language detection: 2-layer multilingual small (51865 vocab).
+    mdims = _small_2layer("small")
+    mmodel = init_whisper(mdims, seed=3, device="cpu")
+    sp = ByteFallbackTokenizer(english=False).specials
+    rows = np.stack([np.pad(synth_speech(rng, s), (0, WINDOW - int(s * SR)))
+                     for s in (4.0, 12.0, 25.0)])
+    ids = {}
+    for dev in ("cuda", "cpu"):
+        ids[dev] = decoding.detect_language_from_audio(
+            copy.deepcopy(mmodel).to(dev), torch.from_numpy(rows).to(dev),
+            mdims, sp.sot, sp.sot + 1, sp.translate).cpu()
+    same_ids = torch.equal(ids["cuda"], ids["cpu"])
+    log(f"[language] 2-layer small (51865 vocab) f32: detected ids card "
+        f"{ids['cuda'].tolist()}, CPU {ids['cpu'].tolist()} -> "
+        f"{'identical' if same_ids else 'DIFFER'}")
+    if not same_ids:
+        raise SystemExit("language: card and CPU disagree")
+
+    # save_native / load_native on the rehearsal bundle.
+    path = os.path.join(tmp, "native.pt")
+    t0 = time.perf_counter()
+    bundle.save_native(path)
+    save_s = time.perf_counter() - t0
+    back = ModelBundle(Config(), TorchConfig(), model_dir=model_dir,
+                       device="cuda")
+    t0 = time.perf_counter()
+    back.load_native(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    native_err = 0.0
+    for get in (lambda b: b._whisper[0], lambda b: b._ecapa,
+                lambda b: b._pyannet, lambda b: b._sepformer):
+        a, b2 = _flat(get(bundle)), _flat(get(back))
+        if a.keys() != b2.keys():
+            raise SystemExit("native: the families' names differ")
+        for k in a:
+            native_err = max(native_err, float(
+                (a[k].float() - b2[k].float()).abs().max()))
+    same_dims = (back._whisper[1] == bundle._whisper[1]
+                 and back._ecapa_dims == bundle._ecapa_dims
+                 and back._pyannet_dims == bundle._pyannet_dims
+                 and back._sepformer.dims == bundle._sepformer.dims)
+    size_mb = os.path.getsize(path) / 1e6
+    log(f"[native] save_native {size_mb:.0f} MB in {save_s:.1f} s, "
+        f"load_native in {load_s:.1f} s: max err {native_err}, dims equal "
+        f"{same_dims}, load_source {back.load_source}")
+    if native_err != 0.0 or not same_dims:
+        raise SystemExit("native: the round trip is not exact")
+    os.remove(path)
+    del bundle, back
+    torch.cuda.empty_cache()
+    return {"beam_card_vs_cpu": {"tokens_identical": same_tokens,
+                                 "texts_identical": same_texts,
+                                 "sum_logprob_max_err": slp_err},
+            "full_width_s": calls, "full_width_steps": steps,
+            "launches": launches,
+            "language_ids": ids["cuda"].tolist(),
+            "native": {"size_mb": size_mb, "save_s": save_s,
+                       "load_s": load_s, "max_err": native_err}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1629,6 +2187,11 @@ def main() -> int:
         parity_recipe = timed("parity", phase_parity,
                               os.path.join(rehearsal_dir, "models"),
                               rehearsal_dir)
+        train = timed("train", phase_train,
+                      os.path.join(rehearsal_dir, "models"), rehearsal_dir)
+        train_parity = timed("train_parity", phase_train_parity)
+        beam = timed("beam_language_native", phase_beam_language_native,
+                     os.path.join(rehearsal_dir, "models"), rehearsal_dir)
     finally:
         shutil.rmtree(seeded_dir, ignore_errors=True)
         shutil.rmtree(rehearsal_dir, ignore_errors=True)
@@ -1643,7 +2206,10 @@ def main() -> int:
             "rehearsal": rehearsal["launches"][BENCH_KEY[r["name"]]],
             "int4": int4["launches"][BENCH_KEY[r["name"]]],
             "bench_hot_path": bench_launches[BENCH_KEY[r["name"]]],
-            "parity": parity_recipe["launches"][BENCH_KEY[r["name"]]]}
+            "parity": parity_recipe["launches"][BENCH_KEY[r["name"]]],
+            "train": train["runs"]["plain"]["launches"][r["name"]],
+            "train_remat": train["runs"]["remat"]["launches"][r["name"]],
+            "beam": beam["launches"]["beam5_t0"][BENCH_KEY[r["name"]]]}
 
     report = {"card": card, "build_s": build_s, "sass": sass, "kernels": rows,
               "kernel_extra": kernel_extra, "slice": slice_res,
@@ -1651,7 +2217,8 @@ def main() -> int:
               "engine_parity": parity, "overlap": overlap,
               "overlap_parity": overlap_parity, "serve": serve,
               "rehearsal": rehearsal, "int4": int4, "bench": bench,
-              "parity": parity_recipe,
+              "parity": parity_recipe, "train": train,
+              "train_parity": train_parity, "beam_language_native": beam,
               "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as fh:

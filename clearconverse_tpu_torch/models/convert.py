@@ -245,7 +245,7 @@ def load_torch_state_dict(path: str) -> Dict[str, Any]:
     half-precision tensors upcast to f32 (the speaker converters take bare
     arrays)."""
     if path.endswith(".safetensors"):
-        from safetensors.numpy import load_file
+        from clearconverse_tpu_torch.utils.safetensors import load_file
         return {k: (v.astype(np.float32) if v.dtype == np.float16 else v)
                 for k, v in load_file(path).items()}
     return {k: (v.float() if isinstance(v, torch.Tensor)

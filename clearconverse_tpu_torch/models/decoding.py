@@ -67,6 +67,10 @@ class DecodeOptions:
     # (replicas consecutive per row), and every replica group shares one
     # encoder forward and one cross-KV stream.
     replicas: int = 1
+    # Beam search (whisper beam_size, applied on t == 0 rungs): True routes
+    # greedy_decode_from_audio/store to beam_decode with ``replicas`` beams
+    # per source row; needs temperature 0 and one prompt per replica group.
+    beam: bool = False
 
 
 def build_prompt_batch(prompt_lists, max_prompt_len: int, pad_id: int):
@@ -204,11 +208,15 @@ def greedy_decode_from_audio(
     target_len: int = 30 * 16000,
     timer: Optional[StageTimer] = None,
 ) -> Dict[str, torch.Tensor]:
-    """pad/trim + log-mel + decode."""
+    """pad/trim + log-mel + decode: ``beam_decode`` when ``opts.beam`` (and
+    more than one replica), else ``greedy_decode``."""
     from clearconverse_tpu_torch.audio.mel import log_mel_auto, pad_or_trim
 
     with _span(timer, "log_mel"):
         mel = log_mel_auto(pad_or_trim(audio.float(), target_len), dims.n_mels)
+    if opts.beam and opts.replicas > 1:
+        return beam_decode(model, mel, prompt_tokens, prompt_lens, dims, opts,
+                           max_prompt_len, timer)
     return greedy_decode(model, mel, prompt_tokens, prompt_lens, dims, opts,
                          max_prompt_len, generator, timer)
 
@@ -380,3 +388,199 @@ def greedy_decode(
     out = _finalize_decode(tokens, slp, no_speech_prob, opts)
     out["steps"] = step      # loop steps taken = host syncs on the stop flag
     return out
+
+
+@torch.inference_mode()
+def beam_decode(
+    model: Whisper,
+    mel: torch.Tensor,               # [B // replicas, n_mels, T_frames]
+    prompt_tokens: torch.Tensor,     # [B, P] left-padded
+    prompt_lens: torch.Tensor,       # [B]
+    dims: WhisperDims,
+    opts: DecodeOptions,
+    max_prompt_len: int,
+    timer: Optional[StageTimer] = None,
+) -> Dict[str, torch.Tensor]:
+    """Batched beam search (whisper DecodingOptions(beam_size), patience
+    1.0), as the JAX package's ``beam_decode``.
+
+    ``opts.replicas`` = beam width R; mel carries unique rows and prompts /
+    outputs carry rows × R with beams consecutive per row, so the beams of
+    a row share one encoder forward and one cross-KV stream. Per step: one
+    decoder forward over all beams, candidate scores = cumulative + token
+    logprob, the live set becomes the top-R non-EOT candidates over the
+    R×V grid, and the self-KV cache, token history and timestamp state
+    gather to the surviving beams' source rows.
+
+    Finished sequences live in a capacity-R store per group: an EOT
+    candidate is saved iff it outranks the R-th live candidate,
+    score-ordered within a step and first-come across steps, never evicted.
+    The loop ends when every group has R finished sequences (or max_tokens
+    or the context runs out); a group whose prompt reaches the context end
+    freezes in place. Remaining slots then fill from the live beams in
+    descending cumulative score, EOT appended at no cost (whisper's
+    finalize()). Returns the greedy_decode dict with the R finished
+    sequences per row in store order; the caller picks each row's winner by
+    sum_logprob / length."""
+    B, P = prompt_tokens.shape
+    R = opts.replicas
+    G = B // R
+    if opts.temperature > 0:
+        raise ValueError("beam search is temperature-0 only (whisper "
+                         "semantics: best_of handles sampling rungs)")
+    prompt_tokens = prompt_tokens.long()
+    prompt_lens = prompt_lens.long()
+    dev = mel.device
+    mt, eot = opts.max_tokens, opts.eot
+    cross_kv, kv, logits, pad, max_len = _prefill(
+        model, mel, prompt_tokens, prompt_lens, dims, opts, max_prompt_len,
+        timer)
+    V = logits.shape[-1]
+    no_speech_prob = _no_speech_from_prefill(logits, opts, P)
+    neg_inf = float("-inf")
+
+    with _span(timer, "token_loop"):
+        first = _suppress(logits[:, -1, :], opts, True)
+        none = torch.full((B,), -1, dtype=torch.long, device=dev)
+        if opts.timestamps:
+            first = _timestamp_rules(first, opts, True, none, none, none, 0)
+        logp0 = F.log_softmax(first.float(), dim=-1)
+        # Step 0: the R beams of a group hold one prompt, so their logits
+        # are identical and whisper's first update dedups them into one
+        # distribution: live = its top R non-EOT tokens; an EOT outranking
+        # the R-th of them seeds the finished store.
+        l0 = logp0.reshape(G, R, V)[:, 0, :]
+        eot0 = l0[:, eot]
+        s0, t0 = torch.topk(l0.index_fill(1, torch.tensor([eot], device=dev),
+                                          neg_inf), R, dim=-1)
+        prev = t0.reshape(B)
+        slp = s0.reshape(B).float()
+        tokens = torch.full((B, mt), eot, dtype=torch.long, device=dev)
+        tokens[:, 0] = prev
+        last_ts = (torch.where(prev >= opts.timestamp_begin, prev, none)
+                   if opts.timestamps else none)
+        prev2 = none
+        eot_valid0 = eot0 > s0[:, R - 1]
+        # The store: an all-EOT token row is the empty sequence.
+        fin_tokens = torch.full((G, R, mt), eot, dtype=torch.long, device=dev)
+        fin_scores = torch.full((G, R), neg_inf, device=dev)
+        fin_scores[:, 0] = torch.where(eot_valid0, eot0,
+                                       torch.full_like(eot0, neg_inf))
+        fin_count = eot_valid0.long()
+
+        g_idx = torch.arange(G, device=dev)[:, None]
+        group_base = g_idx * R
+        own = torch.arange(B, device=dev)
+        plen_g = prompt_lens.reshape(G, R)[:, 0]
+        kslot = torch.arange(max_len, device=dev)[None, None, None, :]
+        padded = kslot < pad[:, None, None, :]
+
+        def store(rows, ord_sc, ord_idx, slots, keep):
+            """Write the histories ``rows[ord_idx]`` (beam indices per
+            group) with scores ``ord_sc`` into store slots ``slots`` where
+            ``keep``; the rest are dropped."""
+            hist = rows.reshape(G, R, mt).gather(
+                1, ord_idx[:, :, None].expand(G, R, mt))
+            gi, ri = torch.nonzero(keep, as_tuple=True)
+            fin_tokens[gi, slots[gi, ri]] = hist[gi, ri]
+            fin_scores[gi, slots[gi, ri]] = ord_sc[gi, ri]
+
+        step = 1
+        while step < mt and not bool(
+                ((fin_count >= R) | ((plen_g + step) >= dims.n_text_ctx)).all()):
+            pos = torch.clamp(prompt_lens + step - 1, 0, dims.n_text_ctx - 1)
+            mask = torch.where(padded | (kslot > P - 1 + step), _NEG_INF, 0.0)
+            logits, kv = decoder_forward(
+                model, prev[:, None], pos[:, None], P + step - 1, kv,
+                cross_kv, mask.float(), None, dims, opts.compute_dtype)
+            lg = _suppress(logits[:, 0, :], opts, False)
+            if opts.timestamps:
+                lg = _timestamp_rules(lg, opts, False, prev, prev2, last_ts,
+                                      step)
+            logp = F.log_softmax(lg.float(), dim=-1)
+            # Context-full groups freeze in place; their live beams fill the
+            # store at finalize, like whisper's loop break.
+            frozen = (prompt_lens + step) >= dims.n_text_ctx          # [B]
+            active_g = (plen_g + step) < dims.n_text_ctx               # [G]
+            cand = (slp[:, None] + logp).reshape(G, R, V)
+            eot_sc = cand[:, :, eot]                                   # [G, R]
+            live = cand.clone()
+            live[:, :, eot] = neg_inf
+            sc, flat = torch.topk(live.reshape(G, R * V), R, dim=-1)   # [G, R]
+            # whisper's update(): sorted candidates route EOT to finished
+            # and the rest to live, and stop once R are live, so an EOT is
+            # saved iff it outranks the R-th live candidate.
+            eot_valid = (eot_sc > sc[:, R - 1:R]) & active_g[:, None]
+            ord_sc, ord_idx = torch.topk(
+                torch.where(eot_valid, eot_sc,
+                            torch.full_like(eot_sc, neg_inf)), R, dim=-1)
+            valid = ord_sc > neg_inf
+            slots = fin_count[:, None] + torch.cumsum(valid.long(), 1) - 1
+            keep = valid & (slots < R)
+            store(tokens, ord_sc, ord_idx, slots, keep)
+            fin_count = fin_count + keep.long().sum(1)
+
+            src = torch.where(frozen, own, (flat // V + group_base).reshape(B))
+            tok = (flat % V).reshape(B)
+            # Reorder every per-beam state to the winners' ancestry, the
+            # self-KV cache included (the forward above wrote slot
+            # P+step-1 for each current beam, so gathering after it keeps
+            # the chosen beams' whole history). Cross-KV is per group.
+            kv = [{name: t.index_select(0, src) for name, t in layer.items()}
+                  for layer in kv]
+            tokens = tokens.index_select(0, src)
+            tokens[:, step] = torch.where(frozen, tokens[:, step], tok)
+            slp = torch.where(frozen, slp, sc.reshape(B))
+            new_prev2 = torch.where(frozen, prev2, prev.index_select(0, src))
+            taken_ts = last_ts.index_select(0, src)
+            if opts.timestamps:
+                taken_ts = torch.where(tok >= opts.timestamp_begin, tok,
+                                       taken_ts)
+            last_ts = torch.where(frozen, last_ts, taken_ts)
+            prev = torch.where(frozen, prev, tok)
+            prev2 = new_prev2
+            step += 1
+
+        # whisper's finalize(): groups short of R finished sequences fill
+        # their remaining slots from the live beams by cumulative score.
+        ord_sc, ord_idx = torch.topk(slp.reshape(G, R), R, dim=-1)
+        slots = fin_count[:, None] + torch.arange(R, device=dev)[None, :]
+        store(tokens, ord_sc, ord_idx, slots, slots < R)
+
+    if timer is not None:
+        timer.count("token_loop_steps", step - 1)
+    out = _finalize_decode(fin_tokens.reshape(B, mt), fin_scores.reshape(B),
+                           no_speech_prob, opts)
+    out["steps"] = step
+    return out
+
+
+@torch.inference_mode()
+def detect_language_from_audio(
+    model: Whisper,
+    audio: torch.Tensor,             # [B, T] 16 kHz waveform
+    dims: WhisperDims,
+    sot: int,
+    lang_lo: int,                    # first language-token id (sot + 1)
+    lang_hi: int,                    # one past the last language token
+    target_len: int = 30 * 16000,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """whisper detect_language: log-mel (K1 on CUDA), the encoder (K2 on
+    CUDA), the cross-KV, one decoder forward over ``[sot]``, and an argmax
+    over the language-token logits → [B] language-token ids."""
+    from clearconverse_tpu_torch.audio.mel import log_mel_auto, pad_or_trim
+
+    mel = log_mel_auto(pad_or_trim(audio.float(), target_len), dims.n_mels)
+    feats = whisper_encode(model, mel, dims, compute_dtype)
+    cross_kv = precompute_cross_kv(model, feats, n_head=dims.n_text_head)
+    B = mel.shape[0]
+    dev = mel.device
+    tokens = torch.full((B, 1), sot, dtype=torch.long, device=dev)
+    positions = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    self_kv = init_kv_cache(dims, B, 1, compute_dtype, device=dev)
+    mask = torch.zeros((1, 1, 1, 1), dtype=torch.float32, device=dev)
+    logits, _ = decoder_forward(model, tokens, positions, 0, self_kv,
+                                cross_kv, mask, None, dims, compute_dtype)
+    lang = logits[:, 0, lang_lo:lang_hi].float()
+    return lang.argmax(dim=-1) + lang_lo

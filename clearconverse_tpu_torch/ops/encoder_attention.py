@@ -8,6 +8,12 @@ function). bf16 runs a wgmma + TMA flash kernel, f32 a scalar one.
 ``encoder_attention`` launches the CUDA kernel for CUDA tensors and runs
 ``encoder_attention_plain`` for CPU tensors; it never falls back from one to
 the other. ``encoder_attention.launches`` counts the kernel launches.
+
+Differentiable, as the JAX kernel's custom VJP is: when grad mode is on and
+an input requires grad, the call goes through ``_EncoderAttention``, whose
+forward is the same kernel (or plain version) and whose backward recomputes
+through the plain einsum attention (``models/whisper.attention``). There is
+no backward kernel, as there is none in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,12 +57,40 @@ def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return o.transpose(1, 2).reshape(B, T, D).to(q.dtype)
 
 
+class _EncoderAttention(torch.autograd.Function):
+    """K2 with the JAX custom VJP's backward: the forward launches the
+    kernel (plain version on the CPU) and saves q, k, v; the backward
+    differentiates the plain einsum attention at those inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_head):
+        ctx.save_for_backward(q, k, v)
+        ctx.n_head = n_head
+        return _forward(q, k, v, n_head)
+
+    @staticmethod
+    def backward(ctx, g):
+        from clearconverse_tpu_torch.models.whisper import attention
+        q, k, v = (x.detach().requires_grad_(True) for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = attention(q, k, v, None, ctx.n_head)
+        return (*torch.autograd.grad(out, (q, k, v), g), None)
+
+
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       n_head: int) -> torch.Tensor:
     """q, k, v: [B, T, D] → [B, T, D]; full (unmasked) attention over T.
     CPU tensors: the plain version. CUDA tensors: the kernel, which takes
     contiguous, 16-byte aligned bf16 or f32 inputs with 64-wide heads and
-    raises otherwise."""
+    raises otherwise. With grad mode on and an input that requires grad,
+    the result carries ``_EncoderAttention``'s backward."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _EncoderAttention.apply(q, k, v, n_head)
+    return _forward(q, k, v, n_head)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             n_head: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return encoder_attention_plain(q, k, v, n_head)
     if q.device.type != "cuda":

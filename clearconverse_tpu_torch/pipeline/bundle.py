@@ -11,9 +11,11 @@ PyanNet segmentation (``segment_frames``) and ECAPA embeddings
 (``embed_*``), from host batches or from store windows, with the same row
 bucketing as the transcription program. The overlap half: RE-SepFormer
 separation (``separate_batch``) and the word-timestamp alignment pass
-(``transcribe_batch(word_timestamps=True)``). The native checkpoint format
-is not ported yet; calling it raises ``NotImplementedError`` naming its
-ROADMAP item.
+(``transcribe_batch(word_timestamps=True)``). Greedy rungs with
+``beam_size > 1`` decode by beam search (``models/decoding.beam_decode``);
+multilingual models without a pinned language detect it per row first
+(``detect_language_from_audio``). ``save_native`` / ``load_native`` keep
+all four families in one ``torch.save`` file with a dims meta block.
 """
 
 from __future__ import annotations
@@ -143,14 +145,6 @@ def iter_store_batches(refs, lens, sr, buckets, batch_size,
                                   [refs[i][1] for i in sub],
                                   [refs[i][2] for i in sub],
                                   [max(min(lens[i], b), 1) for i in sub], b)
-
-
-def _not_ported(name: str, item: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"ModelBundle.{name} is not ported yet: ROADMAP.md queue 1, {item}")
-    method.__name__ = name
-    return method
 
 
 class ModelBundle:
@@ -514,15 +508,23 @@ class ModelBundle:
         return (final_tokens, final_lens, sum_lp, nsp, final_avg, texts,
                 final_temp)
 
-    def _whisper_checked(self):
-        """(model, dims, tokenizer); multilingual models need a pinned
-        language until detection is ported."""
-        model, dims, tok = self._whisper
-        if not tok.specials.english_only and self.torch_config.language is None:
-            raise NotImplementedError(
-                "language detection is not ported yet: ROADMAP.md queue 1, "
-                "slice 1 leftovers")
-        return model, dims, tok
+    def _detect_languages(self, audio, model, dims, tok, target: int):
+        """Per-row language codes by whisper detect_language for a
+        multilingual model without a pinned ``TorchConfig.language``; None
+        otherwise. Detection runs its own encoder forward: the codes must
+        come back to the host to build the prompts."""
+        if tok.specials.english_only or self.torch_config.language is not None:
+            return None
+        from clearconverse_tpu_torch.models.decoding import (
+            detect_language_from_audio)
+        from clearconverse_tpu_torch.models.tokenizer import WHISPER_LANGUAGES
+        sp = tok.specials
+        wav = audio.gather() if isinstance(audio, StoreBatch) else audio
+        lang_lo = sp.sot + 1
+        ids = _host(detect_language_from_audio(
+            model, wav, dims, sp.sot, lang_lo, sp.translate, target,
+            self._cdt))
+        return [WHISPER_LANGUAGES[i - lang_lo] for i in ids]
 
     def _decode_rows(self, timestamps: bool, sot_off: int, max_p: int,
                      target: int):
@@ -539,10 +541,6 @@ class ModelBundle:
 
         def decode_rows(audio_rows, toks_rows, lens_rows, temp: float,
                         replicas: int = 1):
-            if temp == 0 and replicas > 1:
-                raise NotImplementedError(
-                    "beam search (beam_size > 1) is not ported yet: "
-                    "ROADMAP.md queue 1, slice 1 leftovers")
             opts = dec.DecodeOptions(
                 max_tokens=cfg.max_decode_tokens,
                 temperature=temp, eot=sp.eot,
@@ -553,7 +551,7 @@ class ModelBundle:
                 self_kv_bits=cfg.self_kv_bits,
                 no_speech_token=sp.no_speech, sot_from_end=sot_off,
                 timestamps=timestamps, timestamp_begin=sp.timestamp_begin,
-                replicas=replicas)
+                replicas=replicas, beam=(temp == 0 and replicas > 1))
             gen = None
             if temp > 0:
                 self._decode_seed += 1
@@ -589,7 +587,7 @@ class ModelBundle:
         pass over the same padded rows → (texts, words)."""
         self._ensure()
         cfg = self.torch_config
-        model, dims, tok = self._whisper_checked()
+        model, dims, tok = self._whisper
         sp = tok.specials
         n_real = len(prompts)
         rows = _row_bucket(n_real)
@@ -606,8 +604,10 @@ class ModelBundle:
             audio = torch.as_tensor(np.asarray(audio, np.float32),
                                     device=self.device)
 
+        languages = self._detect_languages(audio, model, dims, tok, target)
         toks, lens, max_p, sot_off = self._prompt_batch(prompts, tok, dims,
-                                                        timestamps=False)
+                                                        timestamps=False,
+                                                        languages=languages)
         decode_rows = self._decode_rows(False, sot_off, max_p, target)
 
         (final_tokens, final_lengths, _sum_lp, nsp, final_avg,
@@ -625,16 +625,18 @@ class ModelBundle:
         if not word_timestamps:
             return texts[:n_real]
         return texts[:n_real], self._align(model, dims, tok, audio, target,
-                                           final_tokens, final_lengths, n_real)
+                                           final_tokens, final_lengths, n_real,
+                                           languages)
 
     @torch.no_grad()
     def _align(self, model, dims, tok, audio, target: int, tokens, lengths,
-               n_real: int):
+               n_real: int, languages=None):
         """Word timestamps of the decoded rows: the rows re-encoded (log-mel,
         encoder) and one teacher-forced pass replaying openai-whisper's
-        find_alignment conditioning — the full SOT sequence and
-        <|notimestamps|> — on the decode's padded row count; pad rows run
-        with length 0 and give empty lists."""
+        find_alignment conditioning — the full SOT sequence (with each
+        row's ``languages`` entry, when detected) and <|notimestamps|> — on
+        the decode's padded row count; pad rows run with length 0 and give
+        empty lists."""
         from clearconverse_tpu_torch.audio.mel import log_mel_auto, pad_or_trim
         from clearconverse_tpu_torch.models.alignment import align_batch
         from clearconverse_tpu_torch.models.whisper import whisper_encode
@@ -647,9 +649,10 @@ class ModelBundle:
         if sp.english_only:
             pres = [[sp.sot, sp.no_timestamps]] * rows
         else:
-            lang = self.torch_config.language or "en"
+            langs = (list(languages[:n_real]) if languages is not None
+                     else [self.torch_config.language or "en"] * n_real)
             pres = ([list(sp.sot_sequence(sp.language_token(lang)))
-                     + [sp.no_timestamps]] * n_real
+                     + [sp.no_timestamps] for lang in langs]
                     + [[sp.sot, sp.no_timestamps]] * (rows - n_real))
         lens = np.zeros(rows, np.int32)
         lens[:n_real] = np.asarray(lengths[:n_real], np.int32)
@@ -674,7 +677,7 @@ class ModelBundle:
         conditioning is off, or the kept result decoded hotter than 0.5."""
         self._ensure()
         cfg = self.torch_config
-        _, dims, tok = self._whisper_checked()
+        model, dims, tok = self._whisper
         sp = tok.specials
         is_store = isinstance(audio, StoreBatch)
         if not is_store:
@@ -691,8 +694,10 @@ class ModelBundle:
             prompts = list(prompts) + [""] * (rows - n_real)
         if not is_store:
             audio = self._put(audio)
+        languages = self._detect_languages(audio, model, dims, tok, 30 * 16000)
         toks, plens, max_p, sot_off = self._prompt_batch(prompts, tok, dims,
-                                                         timestamps=True)
+                                                         timestamps=True,
+                                                         languages=languages)
         decode_rows = self._decode_rows(True, sot_off, max_p, 30 * 16000)
 
         def win_text(tk: np.ndarray, n: int) -> str:
@@ -906,5 +911,101 @@ class ModelBundle:
             return _host(sepformer_separate(self._sepformer,
                                             self._put(audio)))[:n_real]
 
-    save_native = _not_ported("save_native", "slice 1 leftovers")
-    load_native = _not_ported("load_native", "slice 1 leftovers")
+    # ---------------------------------------------------------- checkpoints
+    def save_native(self, path: str) -> None:
+        """All four model families in one ``torch.save`` file, each in its
+        reference checkpoint's names (openai Whisper, speechbrain ECAPA,
+        pyannote PyanNet, the speechbrain RE-SepFormer triplet) as f32 CPU
+        tensors, with every family's dims in a ``meta`` block so the file
+        describes itself: a tiny or custom model round-trips exactly."""
+        self._ensure()
+        import dataclasses
+        import os
+        from clearconverse_tpu_torch.models.ecapa import (
+            EcapaDims, ecapa_to_state_dict)
+        from clearconverse_tpu_torch.models.pyannet import (
+            PyannetDims, pyannet_to_state_dict)
+        from clearconverse_tpu_torch.train.checkpoint import (
+            whisper_to_openai_state_dict)
+
+        def tensors(sd):
+            return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                    for k, v in sd.items()}
+
+        model, w_dims, _ = self._whisper
+        sep = self._sepformer
+        payload = {
+            "whisper": tensors(whisper_to_openai_state_dict(model)),
+            "ecapa": tensors(ecapa_to_state_dict(self._ecapa)),
+            "pyannet": tensors(pyannet_to_state_dict(self._pyannet)),
+            "sepformer": {part: {k: v.detach().float().cpu()
+                                 for k, v in getattr(sep, part)
+                                 .state_dict().items()}
+                          for part in ("encoder", "masknet", "decoder")},
+            "meta": {
+                "whisper_dims": dataclasses.asdict(w_dims),
+                "ecapa_dims": dataclasses.asdict(self._ecapa_dims
+                                                 or EcapaDims()),
+                "pyannet_dims": dataclasses.asdict(self._pyannet_dims
+                                                   or PyannetDims()),
+                "sepformer_dims": dataclasses.asdict(sep.dims),
+            },
+        }
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        torch.save(payload, path)
+
+    def load_native(self, path: str) -> None:
+        """Restore a ``save_native`` file onto the bundle's device. Dims
+        come from its ``meta`` block; a file without one falls back to the
+        config's name table and the weights' shapes."""
+        import dataclasses
+        from clearconverse_tpu_torch.models import ecapa, pyannet
+        from clearconverse_tpu_torch.models import resepformer as rsf
+        from clearconverse_tpu_torch.models.convert import (
+            convert_whisper_state_dict, infer_whisper_dims,
+            whisper_from_jax_params)
+        from clearconverse_tpu_torch.models.tokenizer import load_tokenizer
+        from clearconverse_tpu_torch.models.whisper import (
+            WhisperDims, model_dims)
+
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        whisper_tree = convert_whisper_state_dict(payload["whisper"])
+        ecapa_tree = ecapa.convert_speechbrain_ecapa(payload["ecapa"])
+        pyannet_tree = pyannet.convert_pyannote_pyannet(payload["pyannet"])
+        sep_sds = [payload["sepformer"][part]
+                   for part in ("encoder", "masknet", "decoder")]
+        meta = payload.get("meta")
+
+        def undims(cls, d):
+            names = {f.name for f in dataclasses.fields(cls)}
+            return cls(**{k: (tuple(v) if isinstance(v, list) else v)
+                          for k, v in d.items() if k in names})
+
+        if meta:
+            dims = undims(WhisperDims, meta["whisper_dims"])
+            e_dims = undims(ecapa.EcapaDims, meta["ecapa_dims"])
+            p_dims = undims(pyannet.PyannetDims, meta["pyannet_dims"])
+            s_dims = undims(rsf.SepformerDims, meta["sepformer_dims"])
+            sep_tree = rsf.convert_speechbrain_sepformer(*sep_sds, s_dims)
+        else:
+            dims = infer_whisper_dims(
+                whisper_tree, model_dims(self.config.whisper_model_size))
+            e_dims = ecapa.infer_ecapa_dims(ecapa_tree)
+            p_dims = pyannet.infer_pyannet_dims(pyannet_tree)
+            sep_tree = rsf.convert_speechbrain_sepformer(*sep_sds)
+            s_dims = rsf.infer_sepformer_dims(sep_tree)
+        english = self.config.whisper_model_size.endswith(".en")
+        tok = load_tokenizer(self.model_dir, english=english)
+        self._whisper = (whisper_from_jax_params(whisper_tree, dims,
+                                                 self.device, self._cdt),
+                         dims, tok)
+        self._ecapa_dims, self._pyannet_dims = e_dims, p_dims
+        self._ecapa = ecapa.ecapa_from_jax_params(ecapa_tree, self.device)
+        self._pyannet = pyannet.pyannet_from_jax_params(pyannet_tree, p_dims,
+                                                        self.device)
+        self._sepformer = rsf.sepformer_from_jax_params(sep_tree, s_dims,
+                                                        self.device)
+        self.load_source = {f: "payload" for f in
+                            ("whisper", "ecapa", "pyannet", "sepformer")}
+        self.load_source["tokenizer"] = type(tok).__name__
+        self._loaded = True

@@ -1,9 +1,13 @@
-"""Fine-tuning, in part.
+"""Fine-tuning.
 
-For now this package holds only the Whisper export of ``train/checkpoint``:
-the port's ``Whisper`` module written back to openai-whisper's state-dict
-names and ``.pt`` format, which ``eval/dress_rehearsal`` uses to write
-real-format checkpoints. The fine-tune step and its CLI (the JAX package's
-``train/finetune.py`` and ``train/__main__.py``) are not ported yet: ROADMAP.md
-queue 1, item 8.
+The reference only *consumes* fine-tuned checkpoints (whisper-ft /
+resepformer-ft overlays, back/api.py:671-692, 727-746) and ships no trainer.
+This package closes that loop on the card: a Whisper fine-tune step
+(teacher forcing, AdamW after a global-norm clip, gradient accumulation,
+remat), its CLI (``python -m clearconverse_tpu_torch.train``), training
+checkpoints, and exports to the reference's overlay formats. Training on a
+device mesh is ROADMAP.md queue 1, item 9.
 """
+
+from clearconverse_tpu_torch.train.finetune import (  # noqa: F401
+    TrainState, make_train_step, whisper_loss, init_train_state)

@@ -1,23 +1,51 @@
-"""The port's ``Whisper`` in openai-whisper's checkpoint format.
+"""Training checkpoints and the port's ``Whisper`` in the reference's
+formats.
 
-``whisper_to_openai_state_dict`` is the exact inverse of the loader's
-``models/convert._convert_openai``: conv weights stay torch's [Cout, Cin, k],
-linear weights [out, in], and the attention ``key`` projections carry no
-bias (openai's have none). ``export_whisper_pt`` writes the ``{size}.pt``
-layout (``dims`` + ``model_state_dict``) that ``models/convert.load_whisper``
-and openai-whisper read.
+* ``save_checkpoint`` / ``load_checkpoint``: the port's own resume format,
+  one ``torch.save`` file of ``{"params": state_dict, "opt_state":
+  optimizer.state_dict(), "step"}``. The JAX package writes orbax
+  directories, which a machine without JAX cannot read.
+* ``whisper_to_openai_state_dict`` is the exact inverse of the loader's
+  ``models/convert._convert_openai``: conv weights stay torch's
+  [Cout, Cin, k], linear weights [out, in], and the attention ``key``
+  projections carry no bias (openai's have none).
+* ``export_whisper_ft`` writes the reference's fine-tune overlay
+  (``whisper-ft/model.safetensors``, openai names, f32) with the port's own
+  safetensors writer; ``export_whisper_pt`` writes the ``{size}.pt`` layout
+  (``dims`` + ``model_state_dict``) that ``models/convert.load_whisper`` and
+  openai-whisper read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from clearconverse_tpu_torch.models.whisper import Whisper, WhisperDims
+
+
+def save_checkpoint(path: str, model: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    step: int = 0) -> None:
+    """One file: the module's state dict as CPU tensors, the optimizer's
+    state dict (when given) and the step count."""
+    payload: Dict[str, Any] = {
+        "params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "step": int(step)}
+    if optimizer is not None:
+        payload["opt_state"] = optimizer.state_dict()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(payload, path)
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A ``save_checkpoint`` file → ``{"params", "step"[, "opt_state"]}``
+    on the CPU (tensors and plain containers only)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def whisper_to_openai_state_dict(model: Whisper) -> Dict[str, np.ndarray]:
@@ -64,6 +92,18 @@ def whisper_to_openai_state_dict(model: Whisper) -> Dict[str, np.ndarray]:
     put("decoder.ln.weight", dec.ln.weight)
     put("decoder.ln.bias", dec.ln.bias)
     return sd
+
+
+def export_whisper_ft(model: Whisper, model_dir: str) -> str:
+    """Write the reference's whisper-ft overlay: f32 safetensors with
+    openai names at ``{model_dir}/whisper-ft/model.safetensors``."""
+    from clearconverse_tpu_torch.utils.safetensors import save_file
+
+    out_dir = os.path.join(model_dir, "whisper-ft")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "model.safetensors")
+    save_file(whisper_to_openai_state_dict(model), path)
+    return path
 
 
 def export_whisper_pt(model: Whisper, dims: WhisperDims, path: str,

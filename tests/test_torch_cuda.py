@@ -407,3 +407,139 @@ def test_bench_hot_path_line_on_card(cuda, capsys):
     assert line["value"] > 0 and "," in line["card"]
     assert hot["launches"]["k1"] > 0 and hot["launches"]["k2"] > 0
     assert hot["step_ms"] > 0 and hot["peak_mem_gb"] > 0
+
+
+# ------------------------------------- fine-tuning, beam search, overlays
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-3),
+                                        (torch.bfloat16, 3e-2)])
+def test_k2_gradient_on_card_matches_cpu(cuda, dtype, rtol):
+    """A CUDA K2 output carries the autograd Function's backward (the plain
+    attention recomputed): q, k and v gradients against the CPU's within
+    ``rtol`` of the largest gradient; one kernel launch per forward, none
+    in the backward."""
+    q, k, v = (_randn((2, 1500, 128), s, sc) for s, sc in
+               ((20, 1.0), (21, 1.0), (22, 0.3)))
+    w = _randn((2, 1500, 128), 23)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ins = [x.to(dev, dtype).requires_grad_(True) for x in (q, k, v)]
+        before = k2.encoder_attention.launches
+        out = k2.encoder_attention(*ins, 2)
+        assert out.grad_fn is not None
+        (out.float() * w.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            assert k2.encoder_attention.launches == before + 1
+        grads[dev.type] = [x.grad.float().cpu() for x in ins]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= rtol * float(b.abs().max())
+
+
+def _train_dims():
+    from clearconverse_tpu_torch.models.whisper import WhisperDims
+    return WhisperDims(n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+                       n_text_state=128, n_text_head=2, n_text_layer=1)
+
+
+def _train_batch(dev, b=2, L=12):
+    rng = np.random.default_rng(30)
+    tokens = rng.integers(0, 50256, (b, L))
+    mask = np.ones((b, L), np.float32)
+    mask[1, 8:] = 0.0
+    return {"mel": _randn((b, 80, 3000), 31).to(dev),
+            "tokens": torch.from_numpy(tokens).to(dev),
+            "targets": torch.from_numpy(np.roll(tokens, -1, 1)).to(dev),
+            "loss_mask": torch.from_numpy(mask).to(dev)}
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """f32 loss sums within 1e-4 relative; every gradient the CPU finds
+    nonzero is nonzero on the card (a K2 output without a backward would
+    leave the encoder's q/k/v weights at zero) and within 1e-3 of the
+    largest; one AdamW step's update (parameters after minus before) is
+    within 5e-6 of the CPU's wherever the CPU gradient exceeds 1e-3 of its
+    parameter's largest (a first AdamW step moves such an entry by about
+    lr = 1e-5, so a step left out or of the wrong sign fails)."""
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.train import finetune as ft
+
+    dims = _train_dims()
+    res = {}
+    before = {n: p.detach().clone() for n, p in ft.trainable_whisper(
+        init_whisper(dims, 7, "cpu")).named_parameters()}
+    for dev in (cuda, torch.device("cpu")):
+        model = ft.trainable_whisper(init_whisper(dims, 7, "cpu").to(dev))
+        batch = _train_batch(dev)
+        s, _ = ft.whisper_loss_sums(model, batch, dims, torch.float32)
+        s.backward()
+        grads = {n: p.grad.cpu().clone() for n, p in model.named_parameters()}
+        state = ft.init_train_state(model)
+        ft.make_train_step(dims, compute_dtype=torch.float32)(state, batch)
+        res[dev.type] = (float(s.detach()), grads,
+                         {n: p.detach().cpu() for n, p in
+                          state.model.named_parameters()})
+    (sc, gc, pc), (s0, g0, p0) = res["cuda"], res["cpu"]
+    assert abs(sc - s0) <= 1e-4 * abs(s0)
+    for name, g in g0.items():
+        if float(g.abs().max()) > 0:
+            assert float(gc[name].abs().max()) > 0, name
+        assert float((gc[name] - g).abs().max()) <= \
+            1e-3 * float(g.abs().max()) + 1e-6, name
+        sel = g.abs() > 1e-3 * float(g.abs().max())
+        if bool(sel.any()):
+            update_card = (pc[name] - before[name])[sel]
+            update_cpu = (p0[name] - before[name])[sel]
+            assert float((update_card - update_cpu).abs().max()) <= 5e-6, name
+
+
+def test_beam_on_card_matches_cpu(cuda):
+    """beam_size 3 at t=0, f32: identical beams and lengths on both."""
+    from clearconverse_tpu_torch.models import decoding
+    from clearconverse_tpu_torch.models.convert import init_whisper
+
+    dims = _train_dims()
+    audio = _randn((2, 16000), 32, 0.1)
+    toks, lens = decoding.build_prompt_batch([[50257, 50362]] * 6, 4, 50256)
+    opts = decoding.DecodeOptions(max_tokens=8, suppress_tokens=tuple(
+        range(50257, 51864)), no_speech_token=50361, replicas=3, beam=True)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = init_whisper(dims, seed=0, device="cpu").to(dev)
+        res = decoding.greedy_decode_from_audio(
+            model, audio.to(dev), torch.from_numpy(toks).to(dev),
+            torch.from_numpy(lens).to(dev), dims, opts, 4)
+        out[dev.type] = (res["tokens"].cpu(), res["lengths"].cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+def test_whisper_ft_overlay_loads_on_card(cuda, tmp_path, caplog):
+    """A whisper-ft/model.safetensors overlay written by export_whisper_ft
+    loads into a card ModelBundle through the port's own reader: the
+    loaded weights equal the written module, with no fallback warning."""
+    import dataclasses
+    import logging
+
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.whisper import model_dims
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    from clearconverse_tpu_torch.train.checkpoint import export_whisper_ft
+
+    dims = dataclasses.replace(model_dims("tiny"), n_audio_layer=1,
+                               n_text_layer=1)
+    written = init_whisper(dims, 9, cuda)
+    export_whisper_ft(written, str(tmp_path))
+    b = ModelBundle(Config(whisper_model_size="tiny"),
+                    TorchConfig(compute_dtype="float32"),
+                    model_dir=str(tmp_path), device=cuda)
+    with caplog.at_level(logging.WARNING):
+        assert b.load_with_progress()
+    assert b.load_source["whisper"] == "checkpoint"
+    assert "unreadable" not in caplog.text
+    model, got_dims, _ = b._whisper
+    assert got_dims == dims
+    got = dict(model.named_parameters())
+    for name, p in written.named_parameters():
+        assert torch.equal(got[name], p), name

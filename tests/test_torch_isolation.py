@@ -2,8 +2,10 @@
 chip_smoke.py) imports jax or the JAX package, and a tiny transcription,
 the engine's default pass on one short file, one separation, the server's,
 the bench's, the eval package's and the entry's imports, and a tiny
-dress-rehearsal set written and loaded back run in a process where both are
-refused at import."""
+dress-rehearsal set written and loaded back, a fine-tune step with its
+whisper-ft overlay read back, beam search and a native bundle checkpoint run
+in a process where both are refused at import, and so is the safetensors
+package, which a deployment may lack."""
 
 import ast
 import os
@@ -53,7 +55,8 @@ _SCRIPT = textwrap.dedent("""
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
             if any(name == r or name.startswith(r + ".")
-                   for r in ("jax", "jaxlib", "clearconverse_tpu")):
+                   for r in ("jax", "jaxlib", "clearconverse_tpu",
+                             "safetensors")):
                 raise ImportError("blocked: " + name)
             return None
 
@@ -127,6 +130,35 @@ _SCRIPT = textwrap.dedent("""
                          device="cpu")
     assert loaded.load_with_progress()
     assert set(loaded.load_source.values()) == {"checkpoint", "BPETokenizer"}
+    # Fine-tuning: one step, a training checkpoint and the whisper-ft
+    # overlay, read back by the loader without the safetensors package;
+    # then beam search and a native bundle checkpoint.
+    import dataclasses
+    import torch
+    from clearconverse_tpu_torch.models.convert import load_whisper
+    from clearconverse_tpu_torch.train.checkpoint import (
+        export_whisper_ft, load_checkpoint, save_checkpoint)
+    from clearconverse_tpu_torch.train.finetune import (
+        init_train_state, make_train_step, trainable_whisper)
+    import clearconverse_tpu_torch.train.__main__  # noqa: F401
+    state = init_train_state(trainable_whisper(b._whisper[0]))
+    toks = torch.full((2, 4), 50257)
+    metrics = make_train_step(dims, compute_dtype=torch.float32)(
+        state, {"mel": torch.randn(2, 80, 200), "tokens": toks,
+                "targets": toks, "loss_mask": torch.ones(2, 4)})
+    assert torch.isfinite(metrics["loss"]), metrics
+    save_checkpoint(os.path.join(model_dir, "train.pt"), state.model,
+                    state.optimizer, state.step)
+    assert load_checkpoint(os.path.join(model_dir, "train.pt"))["step"] == 1
+    export_whisper_ft(state.model, model_dir)
+    tuned, _ = load_whisper(model_dir, "small.en", "cpu")
+    assert all(torch.equal(p, q) for p, q in zip(tuned.parameters(),
+                                                 state.model.parameters()))
+    b.torch_config = dataclasses.replace(b.torch_config, beam_size=2)
+    assert len(b.transcribe_batch(audio.astype(np.float32), ["", "hi"],
+                                  temperature=0.0)) == 2
+    b.save_native(os.path.join(model_dir, "native.pt"))
+    b.load_native(os.path.join(model_dir, "native.pt"))
     leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "clearconverse_tpu" or m.startswith("clearconverse_tpu.")]
     assert not leaked, leaked
