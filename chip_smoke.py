@@ -9,11 +9,14 @@ Phases, each fatal on failure:
   2. kernels — hold each kernel against its plain PyTorch version on the card
                at the main path's shapes (K1 on noise and on speech with
                silence; K1 and K2 bf16 also at the engine's batch of 32 and
-               the bench hot path's of 128; K1 at the train CLI's one row;
-               K2 bf16 at the train step's B=4 and B=2 through its autograd
-               Function, output and q/k/v gradients against autograd
-               through the plain version), and time kernel, plain version
-               and, where one exists, the single PyTorch library call;
+               the bench hot path's of 128; K1 at the train CLI's one row
+               and at a data rank's 4 rows of phase 17's 2x1 mesh; K2 at
+               the heads a rank runs on the mesh paths (K2_MESH_SHAPES);
+               K2 through its autograd Function at the train steps' shapes,
+               sharded ones included (K2_GRAD_SHAPES), output and q/k/v
+               gradients against autograd through the plain version), and
+               time kernel, plain version and, where one exists, the single
+               PyTorch library call;
   3. slice   — a 2-layer model at small.en's full width, f32: transcribe_batch
                at t=0 on the card (kernels) and on the CPU (plain versions);
                identical tokens and texts, encoder output and prefill logits
@@ -112,13 +115,29 @@ Phases, each fatal on failure:
                a 2-layer multilingual small model: identical ids card vs
                CPU; save_native then load_native of the rehearsal bundle:
                max error 0 and equal dims.
+ 17. mesh/quantize — two spawned ranks share the card over gloo (the
+               compute mode must allow it): transcribe_batch at 1x2 (tensor
+               parallel, K2 with 6 of small.en's 12 heads a rank) and at 2x1
+               (data parallel) on a 2-layer small.en-width f32 model, t=0,
+               phase 4's segments: tokens and texts identical to the 1x1
+               card call, K1 and K2 launching on every rank; then
+               entry.dryrun_multichip(2, "cuda") (a sharded train step,
+               serving and process_files equal to 1x1, with overlap); then
+               phase 4's segments on the rehearsal bundle with an int8
+               decoder (ops/quantize) and its bf16 one in turns at B=8, 32
+               and 128, t=0, 32 tokens: step time, peak memory, valid
+               token ids, K1/K2 launches. Two ranks on one card share it,
+               so no speed of the mesh is taken.
 Then it prints the kernels JSON line, the card's name and power limit, and,
 last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 (--profile also traces one transcribe_batch call, one engine pass and one
 overlap pass with torch.profiler: kernel time by name and the card's busy
-share.)
+share.) On a host with N cards, python3 chip_smoke.py --cards N runs the
+mesh over NCCL with one card a rank instead: entry.dryrun_multichip(N),
+the train CLI at (N/2)x2 under torchrun against 1x1, and one served
+request with overlaps under torchrun on an (N/2)x2 mesh.
 Without a CUDA card it exits non-zero and prints no result.
 """
 
@@ -243,7 +262,9 @@ def phase_kernels(gen: torch.Generator):
     frame_flops = (400 + 2.5 * 400 * math.log2(400) + 3 * 201
                    + 2 * int(np.count_nonzero(melmod.mel_filterbank(80))))
     k1_rows, k1_bounds = {}, {}
-    for B in (1, N_SEG, 32, 128):   # 1: the train CLI's data prep, per pair
+    # 1: the train CLI's data prep, per pair; 4: a data rank's rows of
+    # phase 17's 2x1 mesh.
+    for B in (1, N_SEG // 2, N_SEG, 32, 128):
         inputs = {
             "noise": torch.randn((B, WINDOW), generator=gen, device="cuda") * 0.1,
             "speech": torch.from_numpy(np.stack([
@@ -284,7 +305,8 @@ def phase_kernels(gen: torch.Generator):
         del inputs, audio
     rows.append(k1_rows[N_SEG])
     extra = {f"mel_power_b{B}": {key: val for key, val in k1_rows[B].items()
-                                 if key != "launches"} for B in (1, 32, 128)}
+                                 if key != "launches"}
+             for B in (1, N_SEG // 2, 32, 128)}
     extra["mel_power_other_bounds"] = k1_bounds
 
     # K2 at T=1500, D=768, H=12: bf16 (the main path's dtype) at B=N_SEG, at
@@ -348,35 +370,89 @@ def phase_kernels(gen: torch.Generator):
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
     log(f"[kernels] encoder_attention f32 {(N_SEG, T, D)}: "
         f"{extra['encoder_attention_f32_ms']:.4f} ms")
-    extra["encoder_attention_train"] = k2_train_check(gen)
+    extra["encoder_attention_mesh"] = k2_mesh_check(gen)
+    extra["encoder_attention_train"] = k2_grad_check(gen)
     return rows, extra
 
 
-def k2_train_check(gen: torch.Generator):
-    """K2 at the train step's shapes, bf16, through its autograd Function:
-    B=4 (the train CLI's --batch 4) and B=2 (its microbatch under
-    --accum_steps 2). The output against the plain version at phase 2's
-    atol 2e-3; the q, k, v gradients of a fixed cotangent against autograd
-    through the plain version within 3e-2 of the largest gradient. The
-    Function's backward recomputes through models/whisper.attention, which
-    scales q and k by dh^-0.25 each in bf16 where the plain version scales
-    q by dh^-0.5: on the CPU the two backwards differ by up to 8e-3 of the
-    largest gradient at these shapes."""
+# K2 at the shapes the mesh paths give it, each rank with its own heads:
+# (B, T, heads, dtype, atol, where). Phase 17's 1x2 mesh (6 heads a rank,
+# f32) and 2x1 mesh (4 rows a data rank); the same 6 heads in bf16, as a
+# served 1x2 mesh of small.en runs them; dryrun_multichip's serving and
+# engine model (2 heads, 128 wide) at 1x1 and its 1x2 shard (1 head, as
+# also tests/test_torch_cuda.py's two ranks on one card).
+K2_MESH_SHAPES = (
+    (N_SEG, 1500, 6, "float32", 1e-4, "phase 17 1x2"),
+    (N_SEG, 1500, 6, "bfloat16", 2e-3, "1x2 of small.en, bf16"),
+    (N_SEG // 2, 1500, 12, "float32", 1e-4, "phase 17 2x1"),
+    (4, 1500, 2, "float32", 1e-4, "dry run 1x1"),
+    (4, 1500, 1, "float32", 1e-4, "dry run 1x2"),
+)
+# K2 through its autograd Function at the train steps' shapes:
+# (B, T, heads, dtype, output atol, gradient limit of the largest, where).
+# The train CLI's --batch 4 and its --accum_steps 2 microbatch at small.en;
+# a sharded step's rank at model=2 of small.en (6 heads) and of tiny (3
+# heads, the --cards run's train CLI at (N/2)x2 with 2 rows a data rank);
+# dryrun_multichip's train step (2 of its 4 heads a rank, 32 frames, f32).
+K2_GRAD_SHAPES = (
+    (4, 1500, 12, "bfloat16", 2e-3, 3e-2, "train CLI"),
+    (2, 1500, 12, "bfloat16", 2e-3, 3e-2, "train CLI microbatch"),
+    (4, 1500, 6, "bfloat16", 2e-3, 3e-2, "small.en at model=2"),
+    (2, 1500, 3, "bfloat16", 2e-3, 3e-2, "tiny at model=2"),
+    (2, 32, 2, "float32", 1e-4, 1e-3, "dry run train step"),
+)
+
+
+def k2_mesh_check(gen: torch.Generator):
+    """K2 against its plain version at K2_MESH_SHAPES (q, k ~ N(0, 1),
+    v ~ 0.3 N(0, 1), as phase 2's main shapes)."""
     from clearconverse_tpu_torch.ops import encoder_attention as k2
 
-    T, D, H = 1500, 768, 12
     res = {}
-    for B in (4, 2):
-        q, k, v = (torch.randn((B, T, D), generator=gen, device="cuda")
-                   .mul_(scale).bfloat16() for scale in (1.0, 1.0, 0.3))
-        g = torch.randn((B, T, D), generator=gen, device="cuda").bfloat16()
+    for B, T, H, dtype, atol, where in K2_MESH_SHAPES:
+        q, k, v = (torch.randn((B, T, H * 64), generator=gen, device="cuda")
+                   .mul_(scale).to(getattr(torch, dtype))
+                   for scale in (1.0, 1.0, 0.3))
+        out = k2.encoder_attention(q, k, v, H)
+        ref = k2.encoder_attention_plain(q, k, v, H)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        log(f"[kernels] K2 encoder_attention {(B, T, H * 64)} {dtype}, "
+            f"{H} heads ({where}): max err {err:.3g} (atol {atol}) -> "
+            f"{'ok' if err <= atol else 'FAIL'}")
+        if not err <= atol:
+            raise SystemExit("K2 disagrees with its plain version at a "
+                             "mesh shape")
+        res[f"{(B, T, H * 64)} {dtype}"] = err
+        del q, k, v, out, ref
+    return res
+
+
+def k2_grad_check(gen: torch.Generator):
+    """K2 through its autograd Function at K2_GRAD_SHAPES: the output
+    against the plain version, and the q, k, v gradients of a fixed
+    cotangent against autograd through the plain version, within the
+    given share of the largest gradient. The Function's backward
+    recomputes through models/whisper.attention, which scales q and k by
+    dh^-0.25 each where the plain version scales q by dh^-0.5: in bf16 on
+    the CPU the two backwards differ by up to 8e-3 of the largest gradient
+    at the train CLI's shapes."""
+    from clearconverse_tpu_torch.ops import encoder_attention as k2
+
+    res = {}
+    for B, T, H, dtype, atol, limit, where in K2_GRAD_SHAPES:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((B, T, H * 64), generator=gen, device="cuda")
+                   .mul_(scale).to(dt) for scale in (1.0, 1.0, 0.3))
+        g = torch.randn((B, T, H * 64), generator=gen, device="cuda").to(dt)
         outs, grads = {}, {}
         for label, fn in (("kernel", k2.encoder_attention),
                           ("plain", k2.encoder_attention_plain)):
             ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
             out = fn(*ins, H)
             if out.grad_fn is None:
-                raise SystemExit(f"K2 {label} output at B={B} has no grad_fn")
+                raise SystemExit(f"K2 {label} output at {where} has no "
+                                 "grad_fn")
             grads[label] = torch.autograd.grad(out, ins, g)
             outs[label] = out.detach().float()
         torch.cuda.synchronize()
@@ -386,15 +462,16 @@ def k2_train_check(gen: torch.Generator):
             / float(b.float().abs().max())
             for name, a, b in zip("qkv", grads["kernel"], grads["plain"])}
         finite = all(bool(torch.isfinite(a).all()) for a in grads["kernel"])
-        ok = err <= 2e-3 and finite and max(grad_rel.values()) <= 3e-2
-        log(f"[kernels] K2 encoder_attention {(B, T, D)} bf16 with grad: "
-            f"output max err {err:.3g} (atol 2e-3), q/k/v gradient max err "
-            f"of the largest {grad_rel} (limit 3e-2) -> "
-            f"{'ok' if ok else 'FAIL'}")
+        ok = err <= atol and finite and max(grad_rel.values()) <= limit
+        log(f"[kernels] K2 encoder_attention {(B, T, H * 64)} {dtype}, "
+            f"{H} heads ({where}) with grad: output max err {err:.3g} (atol "
+            f"{atol}), q/k/v gradient max err of the largest {grad_rel} "
+            f"(limit {limit}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("K2's autograd Function disagrees with the "
-                             "plain version at the train shapes")
-        res[f"B={B}"] = {"max_abs_err": err, "grad_rel_err": grad_rel}
+                             f"plain version at {where}")
+        res[f"{(B, T, H * 64)} {dtype}"] = {"max_abs_err": err,
+                                            "grad_rel_err": grad_rel}
         del q, k, v, g, outs, grads
     torch.cuda.empty_cache()
     return res
@@ -2133,11 +2210,386 @@ def phase_beam_language_native(model_dir: str, tmp: str):
                        "load_s": load_s, "max_err": native_err}}
 
 
+# ------------------------------------------------ mesh, int8 decoder weights
+
+MESH_TOKENS = 32        # decode length of phase 17's calls
+INT8_BATCHES = (8, 32, 128)
+
+
+def transcribe_tokens(bundle, audio, prompts, temperature=0.0):
+    """transcribe_batch, and the tokens of its (last) decode call."""
+    import clearconverse_tpu_torch.pipeline.bundle as bundle_mod
+    inner, calls = bundle_mod._unpack_decode, []
+
+    def record(out, max_tokens):
+        calls.append(inner(out, max_tokens))
+        return calls[-1]
+
+    bundle_mod._unpack_decode = record
+    try:
+        texts = bundle.transcribe_batch(audio, prompts,
+                                        temperature=temperature)
+    finally:
+        bundle_mod._unpack_decode = inner
+    return texts, np.asarray(calls[-1][0])[:len(prompts)]
+
+
+def mesh_whisper(device):
+    """Phase 17's Whisper: small.en width (12 heads, 768 wide), 2 encoder
+    and 2 decoder layers, seeded, with byte_text so texts are not empty."""
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.whisper import model_dims
+    dims = dataclasses.replace(model_dims("small.en"), n_audio_layer=2,
+                               n_text_layer=2)
+    return byte_text(init_whisper(dims, seed=1, device=device)), dims
+
+
+def mesh_bundle(device, data: int, model: int):
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.models.tokenizer import ByteFallbackTokenizer
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    b = ModelBundle(Config(), TorchConfig(
+        compute_dtype="float32", max_decode_tokens=MESH_TOKENS,
+        data_axis=data, model_axis=model), device=device)
+    whisper, dims = mesh_whisper(device)
+    b._whisper = (whisper, dims, ByteFallbackTokenizer())
+    b._loaded = True
+    return b
+
+
+def mesh_rank(devices, audio, prompts):
+    """One of phase 17's two ranks: transcribe_batch at 1x2 and at 2x1,
+    each with the launch counters set to 0 just before and read just after
+    on every rank, and this rank's heads in K2."""
+    import torch.distributed as dist
+    from clearconverse_tpu_torch.models.whisper import tensor_parallel
+    from clearconverse_tpu_torch.ops import encoder_attention as k2
+    from clearconverse_tpu_torch.ops import logmel as k1
+
+    device = torch.device(devices[dist.get_rank()])
+    out = {}
+    for data, model in ((1, 2), (2, 1)):
+        b = mesh_bundle(device, data, model)
+        _ = b.mesh
+        k1.mel_power.launches = 0
+        k2.encoder_attention.launches = 0
+        texts, tokens = transcribe_tokens(b, audio, prompts)
+        torch.cuda.synchronize()
+        shard, dims, _ = b._whisper_on_mesh()
+        tp = tensor_parallel(shard)
+        mine = {"k1": k1.mel_power.launches,
+                "k2": k2.encoder_attention.launches,
+                "k2_heads": (dims.n_audio_head if tp is None
+                             else tp.heads(dims.n_audio_head)),
+                "q_width": int(shard.encoder.blocks[0].attn.q.weight.shape[0])}
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, mine)
+        out[f"{data}x{model}"] = {"texts": texts, "tokens": tokens,
+                                  "ranks": ranks}
+        del b, shard
+    return out
+
+
+def int8_decoder_timing(bundle, host_batch):
+    """Phase 4's segments on the rehearsal bundle with an int8 decoder and
+    with its own bf16 one, in turns (int8, bf16, bf16, int8) at B = 8, 32
+    and 128 (the 8 segments tiled), t=0, MESH_TOKENS tokens: the token
+    loop's step time, peak memory, valid token ids, K1/K2 launches."""
+    from clearconverse_tpu_torch.bench import _measured
+    from clearconverse_tpu_torch.ops.quantize import quantize_whisper_decoder
+    from clearconverse_tpu_torch.utils.tracing import StageTimer
+
+    model, dims, tok = bundle._whisper
+    qmodel = quantize_whisper_decoder(model)
+    base = bundle.torch_config
+    runs = {}
+    try:
+        bundle.torch_config = dataclasses.replace(
+            base, max_decode_tokens=MESH_TOKENS)
+        for B in INT8_BATCHES:
+            audio = np.tile(np.asarray(host_batch), (B // N_SEG, 1))
+            runs[B] = {"int8": [], "bf16": []}
+            for label in ("int8", "bf16", "bf16", "int8"):
+                bundle._whisper = (qmodel if label == "int8" else model,
+                                   dims, tok)
+                timer = StageTimer(sync=True)
+                bundle.decode_timer = timer
+                counted: dict = {}
+                with _measured(torch.device("cuda"), counted):
+                    t0 = time.perf_counter()
+                    _, tokens = transcribe_tokens(bundle, audio, [""] * B)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                steps = timer.counts.get("token_loop_steps", 0)
+                run = {"wall_s": wall, "steps": steps,
+                       "step_ms": timer.as_dict()["token_loop"]
+                       / max(steps, 1) * 1e3,
+                       "peak_mem_gb": counted["peak_mem_gb"],
+                       "launches": counted["launches"],
+                       "tokens_valid": bool(((tokens >= 0)
+                                             & (tokens < dims.n_vocab)).all())}
+                runs[B][label].append(run)
+                log(f"[int8] B={B} {label} decoder: {wall:.3f} s, step "
+                    f"{run['step_ms']:.3f} ms over {steps} steps, peak "
+                    f"{run['peak_mem_gb']:.2f} GB, launches "
+                    f"{run['launches']}")
+                if not run["tokens_valid"] or \
+                        min(run["launches"].values()) == 0:
+                    raise SystemExit("int8: invalid tokens or a kernel "
+                                     "that did not launch")
+    finally:
+        bundle._whisper = (model, dims, tok)
+        bundle.torch_config = base
+        bundle.decode_timer = None
+    decoder_linears = [m for blk in model.decoder.blocks
+                       for m in (blk.attn.q, blk.attn.k, blk.attn.v,
+                                 blk.attn.out, blk.cross.q, blk.cross.k,
+                                 blk.cross.v, blk.cross.out, blk.mlp.fc1,
+                                 blk.mlp.fc2)]
+    return {"runs": runs, "tokens": MESH_TOKENS,
+            "decoder_linear_mb": {
+                "bf16": sum(m.weight.numel() * m.weight.element_size()
+                            for m in decoder_linears) / 1e6,
+                "int8": sum(m.weight.numel() for m in decoder_linears) / 1e6}}
+
+
+def phase_mesh_quantize(bundle, host_batch):
+    """Phase 17: two ranks sharing the card over gloo at 1x2 and 2x1
+    against the 1x1 card call; dryrun_multichip(2) on the card; the int8
+    decoder timed against the bf16 one on the rehearsal bundle."""
+    from clearconverse_tpu_torch import entry
+    from clearconverse_tpu_torch.parallel.launch import run_group
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[mesh] compute mode {mode}")
+    if "exclusive" in mode.lower():
+        raise SystemExit(f"mesh: compute mode {mode} refuses two processes "
+                         "on one card")
+    audio = np.asarray(host_batch)
+    prompts = ["", "a prompt"] * (N_SEG // 2)
+    texts_1x1, tokens_1x1 = transcribe_tokens(mesh_bundle("cuda", 1, 1),
+                                              audio, prompts)
+    t0 = time.perf_counter()
+    meshes = run_group(mesh_rank, ["cuda:0", "cuda:0"],
+                       args=(audio, prompts), timeout_s=300)
+    mesh_s = time.perf_counter() - t0
+    for name, res in meshes.items():
+        same_tokens = bool(np.array_equal(res["tokens"], tokens_1x1))
+        same_texts = res["texts"] == texts_1x1
+        res.update(tokens_identical=same_tokens, texts_identical=same_texts)
+        log(f"[mesh] {name} on two ranks of cuda:0 (gloo), 2-layer "
+            f"small.en width f32 t=0, {N_SEG} rows: tokens identical to 1x1 "
+            f"{same_tokens}, texts identical {same_texts}; per rank "
+            f"{res['ranks']}")
+        if not (same_tokens and same_texts):
+            raise SystemExit(f"mesh: {name} differs from 1x1")
+        if min(min(r["k1"], r["k2"]) for r in res["ranks"]) == 0:
+            raise SystemExit(f"mesh: a kernel did not launch on a rank at "
+                             f"{name}")
+    if any(r["k2_heads"] != 6 or r["q_width"] != 384
+           for r in meshes["1x2"]["ranks"]):
+        raise SystemExit("mesh: K2 did not run with 6 heads a rank at 1x2")
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(2, device="cuda")
+    dry_s = time.perf_counter() - t0
+    log(f"[mesh] dryrun_multichip(2, cuda) in {dry_s:.1f} s: mesh "
+        f"{dry['mesh']} on {dry['devices']}, loss {dry['loss']:.4f}")
+    int8 = int8_decoder_timing(bundle, host_batch)
+    return {"compute_mode": mode, "meshes": meshes, "mesh_s": mesh_s,
+            "dryrun": {"mesh": dry["mesh"], "devices": dry["devices"],
+                       "loss": dry["loss"], "seconds": dry_s},
+            "int8_decoder": int8}
+
+
+# ------------------------------------------- --cards N: one card a rank
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _torchrun(n: int, module: str, argv, env=None, **kw):
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         str(n), "--master-addr", "127.0.0.1", "--master-port",
+         str(_free_port()), "-m", module, *argv],
+        env={**os.environ, **(env or {})}, **kw)
+
+
+def cards_train(n: int, tmp: str):
+    """The train CLI at 1x1 in this process against --mesh (n/2)x2 under
+    torchrun: the rank-0 checkpoint (whole model and AdamW moments) within
+    2.5 lr a step of the 1x1 one (bf16 compute: the sign of a near-zero
+    gradient may flip)."""
+    from clearconverse_tpu_torch.train.checkpoint import load_checkpoint
+    data = os.path.join(tmp, "pairs")
+    os.makedirs(data)
+    write_pairs(data)
+    common = ["--data_dir", data, "--model", "tiny", "--model_dir",
+              os.path.join(tmp, "none"), "--steps", "2", "--batch", str(n),
+              "--max_tokens", "32"]
+    run_train_cli(common + ["--checkpoint", os.path.join(tmp, "a.pt")])
+    mesh = f"{n // 2}x2"
+    t0 = time.perf_counter()
+    proc = _torchrun(n, "clearconverse_tpu_torch.train", common + [
+        "--mesh", mesh, "--checkpoint", os.path.join(tmp, "b.pt"),
+        "--export", os.path.join(tmp, "ft")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    out, _ = proc.communicate(timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"cards: torchrun train --mesh {mesh} failed:\n"
+                         f"{out[-3000:]}")
+    a, b = (load_checkpoint(os.path.join(tmp, f)) for f in ("a.pt", "b.pt"))
+    err = max(float((b["params"][k].float() - v.float()).abs().max())
+              for k, v in a["params"].items())
+    same_shapes = all(b["params"][k].shape == v.shape
+                      for k, v in a["params"].items())
+    log(f"[cards] train CLI --mesh {mesh} under torchrun ({wall:.1f} s): "
+        f"checkpoint max err against 1x1 {err:.3g} (<= {2 * 2.5e-5}), "
+        f"shapes equal {same_shapes}; its output: "
+        f"{out.strip().splitlines()[-3:]}")
+    if not same_shapes or err > 2 * 2.5e-5:
+        raise SystemExit("cards: the sharded CLI's checkpoint differs")
+    return {"mesh": mesh, "wall_s": wall, "max_err": err}
+
+
+def _served_transcript(n: int, models: str, tmp: str, wav: str) -> dict:
+    """One upload of ``wav`` through the port's server on ``models`` (f32):
+    ``python -m clearconverse_tpu_torch.serve`` for n = 1, else under
+    torchrun on an (n/2)x2 mesh. Returns the transcript and the times."""
+    import signal
+    port = _free_port()
+    env = {"API_HOST": "127.0.0.1", "API_PORT": str(port),
+           "MODEL_CACHE_DIR": models, "CC_TORCH_COMPUTE_DTYPE": "float32",
+           # The server writes its uploads and outputs under its working
+           # directory, a temporary one.
+           "PYTHONPATH": os.pathsep.join([os.getcwd()] + [
+               p for p in [os.environ.get("PYTHONPATH")] if p])}
+    work = tempfile.mkdtemp(dir=tmp)
+    kw = dict(cwd=work, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+              text=True, start_new_session=True)
+    if n == 1:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "clearconverse_tpu_torch.serve"],
+            env={**os.environ, **env}, **kw)
+    else:
+        env.update(CC_TORCH_DATA_AXIS=str(n // 2), CC_TORCH_MODEL_AXIS="2")
+        proc = _torchrun(n, "clearconverse_tpu_torch.serve", [], env=env,
+                         **kw)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 300 and proc.poll() is None:
+            try:
+                if _http(port, "GET", "/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.5)
+        else:
+            raise SystemExit(f"cards: the server ({n} ranks) did not come up")
+        up_s = time.perf_counter() - t0
+        with open(wav, "rb") as fh:
+            data = fh.read()
+        boundary = "ccsmokeboundary"
+        body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                f"name=\"file\"; filename=\"meeting.wav\"\r\n"
+                f"Content-Type: audio/wav\r\n\r\n").encode() + data + \
+            f"\r\n--{boundary}--\r\n".encode()
+        t0 = time.perf_counter()
+        _, payload, _ = _http(port, "POST", "/upload-file", body, {
+            "Content-Type": f"multipart/form-data; boundary={boundary}"})
+        tid = json.loads(payload)["task_id"]
+        _http(port, "POST", f"/transcribe/{tid}")
+        msgs = _ws_progress(port, tid)
+        request_s = time.perf_counter() - t0
+        text = json.loads(_http(port, "GET", f"/transcription/{tid}")[1])
+        return {"transcript": text.get("transcription", ""),
+                "last_message": msgs[-1], "start_s": up_s,
+                "request_s": request_s}
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, _ = proc.communicate()
+        with open(os.path.join("chiprun_out", f"cards_serve_{n}.log"),
+                  "w") as fh:
+            fh.write(out or "")
+
+
+def cards_serve(n: int, tmp: str):
+    """One upload with overlaps served by the port's server on the
+    dress-rehearsal checkpoints (with the crafted PyanNet, as phase 13, and
+    f32 compute): at 1x1, then under torchrun on an (n/2)x2 mesh, which
+    must complete with the 1x1 transcript."""
+    from clearconverse_tpu_torch.bench import overlap_wavs
+    from clearconverse_tpu_torch.eval import dress_rehearsal as dr
+    from clearconverse_tpu_torch.models.pyannet import PyannetDims
+    from clearconverse_tpu_torch.pipeline.dev_backend import (
+        craft_pyannet_freq_params)
+    models = os.path.join(tmp, "serve_models")
+    dr.populate(models, "small.en", seed=0, device="cuda")
+    params, pdims = craft_pyannet_freq_params(PyannetDims(), device="cuda")
+    dr.write_pyannet(models, 0, pdims, params=params)
+    (wav,), _ = overlap_wavs(tmp, 1, tiles=2)
+    single = _served_transcript(1, models, tmp, wav)
+    mesh = _served_transcript(n, models, tmp, wav)
+    same = mesh["transcript"] == single["transcript"]
+    lines = mesh["transcript"].count("[SPEAKER_")
+    log(f"[cards] served request with overlaps, f32: 1x1 {single['request_s']:.2f} "
+        f"s, {n // 2}x2 under torchrun {mesh['request_s']:.2f} s (started in "
+        f"{mesh['start_s']:.1f} s); last message {mesh['last_message']}; "
+        f"{lines} speaker lines; transcript identical to 1x1 {same}")
+    if "error" in mesh["last_message"]["message"].lower() or not lines \
+            or not same:
+        raise SystemExit("cards: the served request on the mesh did not "
+                         "give the 1x1 transcript")
+    return {"mesh": f"{n // 2}x2", "request_s": mesh["request_s"],
+            "request_1x1_s": single["request_s"], "speaker_lines": lines,
+            "identical": same}
+
+
+def main_cards(n: int) -> int:
+    """``--cards N``: the mesh over NCCL with one card a rank, against 1x1:
+    entry.dryrun_multichip(N), the train CLI under torchrun and a served
+    request under torchrun."""
+    from clearconverse_tpu_torch import entry
+    if torch.cuda.device_count() < n or n < 2 or n % 2:
+        raise SystemExit(f"--cards {n} needs an even count >= 2 of cards; "
+                         f"this host has {torch.cuda.device_count()}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    phase_build()
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(n, device="cuda")
+    dry_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="cc_cards_")
+    try:
+        train = cards_train(n, tmp)
+        serve = cards_serve(n, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    with open("chiprun_out/chip_smoke_cards.json", "w") as fh:
+        json.dump({"dryrun": {"mesh": dry["mesh"], "devices": dry["devices"],
+                              "loss": dry["loss"], "seconds": dry_s},
+                   "train": train, "serve": serve}, fh, indent=1)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one main-path call, one engine pass and "
                          "one overlap pass with torch.profiler")
+    ap.add_argument("--cards", type=int, default=0,
+                    help="instead of the phases: the mesh over NCCL with one "
+                         "card a rank on N cards, against 1x1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2148,6 +2600,8 @@ def main() -> int:
     t_start = time.perf_counter()
     card = nvidia_smi()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if args.cards:
+        return main_cards(args.cards)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     phase_s = {}
@@ -2181,7 +2635,6 @@ def main() -> int:
         rehearsal, rbundle, host_batch = timed(
             "rehearsal", phase_rehearsal, os.path.join(rehearsal_dir, "models"))
         int4 = timed("int4", phase_int4, rbundle, host_batch)
-        del rbundle
         bench = timed("bench", phase_bench,
                       os.path.join(rehearsal_dir, "models"))
         parity_recipe = timed("parity", phase_parity,
@@ -2192,6 +2645,9 @@ def main() -> int:
         train_parity = timed("train_parity", phase_train_parity)
         beam = timed("beam_language_native", phase_beam_language_native,
                      os.path.join(rehearsal_dir, "models"), rehearsal_dir)
+        mesh = timed("mesh_quantize", phase_mesh_quantize, rbundle,
+                     host_batch)
+        del rbundle
     finally:
         shutil.rmtree(seeded_dir, ignore_errors=True)
         shutil.rmtree(rehearsal_dir, ignore_errors=True)
@@ -2209,7 +2665,13 @@ def main() -> int:
             "parity": parity_recipe["launches"][BENCH_KEY[r["name"]]],
             "train": train["runs"]["plain"]["launches"][r["name"]],
             "train_remat": train["runs"]["remat"]["launches"][r["name"]],
-            "beam": beam["launches"]["beam5_t0"][BENCH_KEY[r["name"]]]}
+            "beam": beam["launches"]["beam5_t0"][BENCH_KEY[r["name"]]],
+            **{f"mesh_{name}_per_rank": [
+                rk[BENCH_KEY[r["name"]]] for rk in res["ranks"]]
+               for name, res in mesh["meshes"].items()},
+            **{f"int8_decoder_b{B}": run["int8"][0]["launches"][
+                BENCH_KEY[r["name"]]]
+               for B, run in mesh["int8_decoder"]["runs"].items()}}
 
     report = {"card": card, "build_s": build_s, "sass": sass, "kernels": rows,
               "kernel_extra": kernel_extra, "slice": slice_res,
@@ -2219,7 +2681,7 @@ def main() -> int:
               "rehearsal": rehearsal, "int4": int4, "bench": bench,
               "parity": parity_recipe, "train": train,
               "train_parity": train_parity, "beam_language_native": beam,
-              "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
+              "mesh_quantize": mesh, "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as fh:
         json.dump(report, fh, indent=1, default=str)

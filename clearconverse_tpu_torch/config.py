@@ -3,8 +3,8 @@
 ``Config`` is a copy of the JAX package's pipeline hyperparameters (same
 fields, same reference defaults). ``TorchConfig`` takes the place of the JAX
 package's ``TPUConfig`` and keeps only the knobs the port reads (the
-transcription program, the audio wire, diarization), with the same
-defaults; ``torch_config_from_env`` mirrors ``tpu_config_from_env`` for them
+transcription program, the mesh axes, the audio wire, diarization), with
+the same defaults; ``torch_config_from_env`` mirrors ``tpu_config_from_env`` for them
 under a ``CC_TORCH_*`` prefix. ``load_environment`` reads the server's
 deployment settings (``.env`` and the environment) as the JAX package does.
 """
@@ -53,6 +53,11 @@ class TorchConfig:
 
     # Duration buckets (seconds) that segments are padded into before batching.
     duration_buckets: tuple = (5.0, 10.0, 30.0)
+    # Mesh axes (parallel/): data splits the batch rows over ranks, model
+    # shards Whisper's heads and MLP (tensor parallel) when > 1. A product
+    # above 1 needs a process group of that many ranks.
+    data_axis: int = 1
+    model_axis: int = 1
     # Max decoded tokens per segment (Whisper's text context is 448).
     max_decode_tokens: int = 224
     # Cap on the temperature ladder when the caller passes a TUPLE
@@ -61,8 +66,8 @@ class TorchConfig:
     # Samples per row on sampling rungs (temperature > 0), best kept by
     # sum_logprob / length (whisper best_of + MaximumLikelihoodRanker).
     best_of: int = 5
-    # Beam width on greedy rungs; 0/1 = plain greedy. Beam search is not
-    # part of this port yet, so a value > 1 raises at decode time.
+    # Beam width on greedy rungs (temperature 0); 0/1 = plain greedy, > 1
+    # = beam search (models/decoding.beam_decode).
     beam_size: int = 0
     # Whisper's silence skip rule (transcribe defaults).
     no_speech_threshold: float = 0.6
@@ -100,6 +105,8 @@ def torch_config_from_env(env: Optional[dict] = None) -> TorchConfig:
     src = env if env is not None else os.environ
     kw = {}
     for var, field, cast in (
+        ("CC_TORCH_DATA_AXIS", "data_axis", int),
+        ("CC_TORCH_MODEL_AXIS", "model_axis", int),
         ("CC_TORCH_CROSS_KV_BITS", "cross_kv_bits", int),
         ("CC_TORCH_SELF_KV_BITS", "self_kv_bits", int),
         ("CC_TORCH_WIRE_BITS", "wire_bits", int),

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from clearconverse_tpu_torch.models.whisper import (
-    Whisper, WhisperDims, _mlp, _split_heads, attention, dense, layer_norm)
+    Whisper, WhisperDims, _column, _mlp, _row, _split_heads, attention,
+    layer_norm, tensor_parallel)
 from clearconverse_tpu_torch.utils.precision import full_f32
 
 AUDIO_FRAME_S = 0.02   # encoder frame = 2 mel hops = 20 ms
@@ -38,11 +39,17 @@ def cross_attention_weights(model: Whisper, tokens: torch.Tensor,
                             ) -> torch.Tensor:
     """Teacher-forced pass → averaged cross-attention [B, T_tok, T_audio]
     from the upper half of the decoder layers. Causal mask −1e9; q and k
-    each scaled by d_head**-0.25, whisper's scaling."""
+    each scaled by d_head**-0.25, whisper's scaling. On a tensor-parallel
+    shard each rank attends with its own heads and the head sums meet over
+    the model axis."""
     dec = model.decoder
     cdt = compute_dtype
     B, T = tokens.shape
     H = dims.n_text_head
+    tp = tensor_parallel(model)
+    Hl = H if tp is None else tp.heads(H)
+    # Heads split over the model axis: each rank sums its own.
+    split = tp is not None and tp.splits(H)
     x = dec.tok[tokens].to(cdt) + dec.pos[:T][None].to(cdt)
     ar = torch.arange(T, device=tokens.device)
     causal = torch.where(ar[None, :] <= ar[:, None], 0.0, -1e9)[None, None]
@@ -50,26 +57,26 @@ def cross_attention_weights(model: Whisper, tokens: torch.Tensor,
     collect = []
     for li, blk in enumerate(dec.blocks):
         h = layer_norm(x, blk.attn_ln)
-        h = attention(dense(h, blk.attn.q), dense(h, blk.attn.k),
-                      dense(h, blk.attn.v), causal, H)
-        x = x + dense(h, blk.attn.out)
+        q, k, v = _column(h, [blk.attn.q, blk.attn.k, blk.attn.v], tp, H)
+        x = x + _row(attention(q, k, v, causal, Hl), blk.attn.out, tp, H)
 
         h = layer_norm(x, blk.cross_ln)
-        q = dense(h, blk.cross.q)
-        ck = dense(audio, blk.cross.k).to(cdt)
-        cv = dense(audio, blk.cross.v).to(cdt)
-        scale = (q.shape[-1] // H) ** -0.25
-        qh = _split_heads(q, H) * scale
-        kh = _split_heads(ck, H) * scale
+        q, = _column(h, [blk.cross.q], tp, H)
+        ck, cv = (t.to(cdt) for t in _column(audio, [blk.cross.k,
+                                                     blk.cross.v], tp, H))
+        scale = (q.shape[-1] // Hl) ** -0.25
+        qh = _split_heads(q, Hl) * scale
+        kh = _split_heads(ck, Hl) * scale
         with full_f32():
             logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float())
             w = torch.softmax(logits, dim=-1)
-            if li >= half:
-                collect.append(w.mean(dim=1))          # [B, T_tok, T_audio]
+            if li >= half:                             # [B, T_tok, T_audio]
+                collect.append(tp.reduce(w.sum(dim=1)) / H if split
+                               else w.mean(dim=1))
             o = torch.einsum("bhqk,bkhd->bqhd", w.to(cdt).float(),
-                             _split_heads(cv, H).float())
-        x = x + dense(o.reshape(q.shape).to(cdt), blk.cross.out)
-        x = x + _mlp(layer_norm(x, blk.mlp_ln), blk.mlp)
+                             _split_heads(cv, Hl).float())
+        x = x + _row(o.reshape(q.shape).to(cdt), blk.cross.out, tp, H)
+        x = x + _mlp(layer_norm(x, blk.mlp_ln), blk.mlp, tp)
     return torch.stack(collect).mean(dim=0)
 
 

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from clearconverse_tpu_torch.models.whisper import (
     Whisper, WhisperDims, decoder_forward, init_kv_cache, precompute_cross_kv,
-    unpack_codes, whisper_encode,
+    tensor_parallel, unpack_codes, whisper_encode,
 )
 from clearconverse_tpu_torch.utils.tracing import StageTimer
 
@@ -71,6 +71,11 @@ class DecodeOptions:
     # greedy_decode_from_audio/store to beam_decode with ``replicas`` beams
     # per source row; needs temperature 0 and one prompt per replica group.
     beam: bool = False
+    # (first row, total rows): this call's prompt rows are that block of a
+    # larger batch (one data rank's share on a mesh), and each sampling
+    # step draws the noise of the whole batch and keeps the block's rows,
+    # so t > 0 samples what the whole batch would. (0, 0): its own rows.
+    noise_rows: Tuple[int, int] = (0, 0)
 
 
 def build_prompt_batch(prompt_lists, max_prompt_len: int, pad_id: int):
@@ -147,10 +152,13 @@ def _pick(logits: torch.Tensor, opts: DecodeOptions,
           generator: Optional[torch.Generator]) -> torch.Tensor:
     """Greedy argmax at t = 0; at t > 0 a categorical sample as
     argmax(logits / t + Gumbel noise), the noise drawn from ``generator``
-    (not the JAX package's random bits)."""
+    (not the JAX package's random bits). ``opts.noise_rows`` draws the
+    noise of a larger batch and keeps this call's block of it."""
     if opts.temperature > 0 and generator is not None:
-        u = torch.rand(logits.shape, generator=generator,
-                       device=logits.device, dtype=torch.float32)
+        lo, total = opts.noise_rows
+        shape = (total, logits.shape[-1]) if total else logits.shape
+        u = torch.rand(shape, generator=generator, device=logits.device,
+                       dtype=torch.float32)[lo:lo + logits.shape[0]]
         gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
         return torch.argmax(logits / opts.temperature + gumbel, dim=-1)
     return torch.argmax(logits, dim=-1)
@@ -257,7 +265,7 @@ def _prefill(model, mel, prompt_tokens, prompt_lens, dims, opts,
         cross_kv = [_widen_codes(c, cdt) for c in precompute_cross_kv(
             model, audio, n_head=dims.n_text_head, bits=opts.cross_kv_bits)]
     self_kv = init_kv_cache(dims, B, max_len, cdt, bits=opts.self_kv_bits,
-                            device=dev)
+                            device=dev, tp=tensor_parallel(model))
 
     pad = (P - prompt_lens)[:, None]                      # [B,1]
     slot = torch.arange(P, device=dev)[None, :]
@@ -578,7 +586,8 @@ def detect_language_from_audio(
     dev = mel.device
     tokens = torch.full((B, 1), sot, dtype=torch.long, device=dev)
     positions = torch.zeros((B, 1), dtype=torch.long, device=dev)
-    self_kv = init_kv_cache(dims, B, 1, compute_dtype, device=dev)
+    self_kv = init_kv_cache(dims, B, 1, compute_dtype, device=dev,
+                            tp=tensor_parallel(model))
     mask = torch.zeros((1, 1, 1, 1), dtype=torch.float32, device=dev)
     logits, _ = decoder_forward(model, tokens, positions, 0, self_kv,
                                 cross_kv, mask, None, dims, compute_dtype)

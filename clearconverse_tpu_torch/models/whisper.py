@@ -13,6 +13,13 @@ Matmul weights live in the compute dtype chosen at load (bf16 by default);
 layer norms run in f32. Attention uses whisper's (d_head)^-0.25 scaling on
 both q and k. On CUDA with 64-wide heads the encoder's self-attention is the
 hand-written kernel K2 (ops/encoder_attention.py).
+
+A tensor-parallel shard (``parallel/sharding.shard_whisper``) carries its
+context as ``model.tp``: the forward passes then attend with the rank's
+local heads and run Megatron's two collectives around the sharded layers;
+``model.tp`` is absent on a whole model. A decoder quantized by
+``ops/quantize.quantize_whisper_decoder`` holds int8 linears, which
+``dense`` dispatches on.
 """
 
 from __future__ import annotations
@@ -170,9 +177,49 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-5) -> torch.Te
     return out.to(x.dtype)
 
 
-def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    bias = None if lin.bias is None else lin.bias.to(x.dtype)
-    return F.linear(x, lin.weight.to(x.dtype), bias)
+def dense(x: torch.Tensor, lin: nn.Module, bias: bool = True) -> torch.Tensor:
+    """``x @ W^T + b`` in ``x``'s dtype; ``bias=False`` leaves ``b`` out.
+    An int8 linear (``ops/quantize.QuantizedLinear``) goes to
+    ``dense_quantized``."""
+    if hasattr(lin, "wq"):
+        from clearconverse_tpu_torch.ops.quantize import dense_quantized
+        return dense_quantized(x, lin, bias=bias)
+    b = None if lin.bias is None or not bias else lin.bias.to(x.dtype)
+    return F.linear(x, lin.weight.to(x.dtype), b)
+
+
+def tensor_parallel(model: nn.Module):
+    """A shard's tensor-parallel context (``parallel/sharding``), or None."""
+    return getattr(model, "tp", None)
+
+
+def _column(x: torch.Tensor, lins, tp,
+            n_head: Optional[int] = None) -> List[torch.Tensor]:
+    """Column-parallel projections of one input: under tensor parallelism
+    the input passes Megatron's f first, and when the ``n_head`` heads of an
+    attention's q, k or v do not split over the model axis the outputs are
+    gathered into whole heads."""
+    if tp is None:
+        return [dense(x, lin) for lin in lins]
+    x = tp.enter(x)
+    outs = [dense(x, lin) for lin in lins]
+    if n_head is None or tp.splits(n_head):
+        return outs
+    return [tp.gather(y) for y in outs]
+
+
+def _row(h: torch.Tensor, lin: nn.Module, tp,
+         n_head: Optional[int] = None) -> torch.Tensor:
+    """A row-parallel projection: under tensor parallelism the partial
+    product is summed over the model axis (Megatron's g) before the bias,
+    which is added once. ``n_head`` names the heads of an attention output
+    that was computed whole (not split): each rank takes its own block."""
+    if tp is None:
+        return dense(h, lin)
+    if n_head is not None and not tp.splits(n_head):
+        h = tp.local_columns(h)
+    y = tp.reduce(dense(h, lin, bias=False))
+    return y if lin.bias is None else y + lin.bias.to(y.dtype)
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -200,8 +247,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(q.shape).to(q.dtype)
 
 
-def _mlp(x: torch.Tensor, mlp: _MLP) -> torch.Tensor:
-    return dense(F.gelu(dense(x, mlp.fc1)), mlp.fc2)
+def _mlp(x: torch.Tensor, mlp: _MLP, tp=None) -> torch.Tensor:
+    h, = _column(x, [mlp.fc1], tp)
+    return _row(F.gelu(h), mlp.fc2, tp)
 
 
 # ------------------------------------------------------------------ encoder
@@ -212,11 +260,15 @@ def whisper_encode(model: Whisper, mel: torch.Tensor, dims: WhisperDims,
 
     The self-attention is ``encoder_attention`` (kernel K2): its plain
     version for CPU tensors, the kernel for CUDA tensors, which raises for
-    heads that are not 64 wide."""
+    heads that are not 64 wide. On a tensor-parallel shard it runs with the
+    rank's local heads."""
     from clearconverse_tpu_torch.ops.encoder_attention import encoder_attention
 
     enc = model.encoder
     cdt = compute_dtype
+    tp = tensor_parallel(model)
+    H = dims.n_audio_head
+    heads = H if tp is None else tp.heads(H)
     x = mel.to(cdt)
     with full_f32():   # cuDNN convolutions default to TF32 in f32
         x = F.gelu(F.conv1d(x, enc.conv1.weight.to(cdt),
@@ -226,10 +278,10 @@ def whisper_encode(model: Whisper, mel: torch.Tensor, dims: WhisperDims,
     x = (x.transpose(1, 2) + enc.pos[: x.shape[2]].to(cdt)).contiguous()
     for blk in enc.blocks:
         h = layer_norm(x, blk.attn_ln)
-        q, k, v = dense(h, blk.attn.q), dense(h, blk.attn.k), dense(h, blk.attn.v)
-        h = encoder_attention(q, k, v, dims.n_audio_head)
-        x = x + dense(h, blk.attn.out)
-        x = x + _mlp(layer_norm(x, blk.mlp_ln), blk.mlp)
+        q, k, v = _column(h, [blk.attn.q, blk.attn.k, blk.attn.v], tp, H)
+        h = encoder_attention(q, k, v, heads)
+        x = x + _row(h, blk.attn.out, tp, H)
+        x = x + _mlp(layer_norm(x, blk.mlp_ln), blk.mlp, tp)
     return layer_norm(x, enc.ln_post)
 
 
@@ -241,20 +293,25 @@ def precompute_cross_kv(model: Whisper, audio: torch.Tensor, n_head: int,
     per segment and re-read every decode step, in the head-major decode
     layout: K [B, H, dh, T], V [B, H, T, dh]. ``bits`` is 16, 8 or 4: 8 and
     4 store integer codes with per-channel f32 scales (amax over T); int4
-    codes are packed two a byte along the last axis (``_quant_kv``)."""
+    codes are packed two a byte along the last axis (``_quant_kv``).
+    ``n_head`` is the model's; a tensor-parallel shard keeps its local
+    heads."""
     if bits not in (16, 8, 4):
         raise ValueError(f"cross-KV width must be 16, 8 or 4, got {bits}")
-    return [_head_major_kv_direct(audio, blk.cross, n_head, bits)
+    return [_head_major_kv_direct(audio, blk.cross, n_head, bits,
+                                  tensor_parallel(model))
             for blk in model.decoder.blocks]
 
 
 def _head_major_kv_direct(audio: torch.Tensor, cross: _Attention,
-                          n_head: int, bits: int) -> Dict[str, Any]:
+                          n_head: int, bits: int, tp=None) -> Dict[str, Any]:
     """Project K/V and lay them out head-major: [B,H,dh,T] / [B,H,T,dh]."""
     B, T, D = audio.shape
     dh = D // n_head
-    kt = dense(audio, cross.k).view(B, T, n_head, dh).permute(0, 2, 3, 1)
-    vt = dense(audio, cross.v).view(B, T, n_head, dh).permute(0, 2, 1, 3)
+    heads = n_head if tp is None else tp.heads(n_head)
+    k, v = _column(audio, [cross.k, cross.v], tp, n_head)
+    kt = k.view(B, T, heads, dh).permute(0, 2, 3, 1)
+    vt = v.view(B, T, heads, dh).permute(0, 2, 1, 3)
     kt, vt = kt.contiguous(), vt.contiguous()
     if bits in (8, 4):
         return {"k8t": _quant_kv(kt, bits, axis=-1),
@@ -350,12 +407,15 @@ def _cross_attention_head_major(q: torch.Tensor, ckv: Dict[str, Any],
 
 def init_kv_cache(dims: WhisperDims, batch: int, max_len: int,
                   dtype: torch.dtype = torch.float32, bits: int = 16,
-                  device="cuda") -> List[Dict[str, torch.Tensor]]:
+                  device="cuda", tp=None) -> List[Dict[str, torch.Tensor]]:
     """Self-attention KV cache per layer in the head-major decode layout:
     K [B,H,dh,M], V [B,H,M,dh]. ``bits=8`` stores int8 values with
     per-position f32 scales (amax over dh per cache slot); both scales fold
-    exactly (K's into the logit columns, V's into the attention weights)."""
+    exactly (K's into the logit columns, V's into the attention weights).
+    ``tp`` (a shard's ``tensor_parallel``) keeps H at the local heads."""
     H, dh = dims.n_text_head, dims.n_text_state // dims.n_text_head
+    if tp is not None:
+        H = tp.heads(H)
     if bits not in (8, 16):
         raise ValueError(f"self-KV cache width must be 16 or 8, got {bits}")
 
@@ -398,18 +458,21 @@ def decoder_forward(
 
     Returns (logits [B, T, vocab] f32, self_kv). The cache is updated IN
     PLACE at ``cache_index`` (the JAX version returns an updated copy);
-    ``self_mask`` must hide future/invalid cache slots."""
+    ``self_mask`` must hide future/invalid cache slots. A tensor-parallel
+    shard attends with its local heads (its caches come from
+    ``init_kv_cache(tp=...)`` and ``precompute_cross_kv``)."""
     dec = model.decoder
     cdt = compute_dtype
+    tp = tensor_parallel(model)
     x = dec.tok[tokens].to(cdt) + dec.pos[positions].to(cdt)
-    H = dims.n_text_head
-    dh = dims.n_text_state // H
+    n_head = dims.n_text_head
+    dh = dims.n_text_state // n_head
+    H = n_head if tp is None else tp.heads(n_head)
 
     for blk, skv, ckv in zip(dec.blocks, self_kv, cross_kv):
         h = layer_norm(x, blk.attn_ln)
-        q = dense(h, blk.attn.q)
-        k_new = dense(h, blk.attn.k)
-        v_new = dense(h, blk.attn.v)
+        q, k_new, v_new = _column(h, [blk.attn.q, blk.attn.k, blk.attn.v],
+                                  tp, n_head)
         B_, T_, D_ = q.shape
         kn = k_new.view(B_, T_, H, dh).permute(0, 2, 3, 1)   # [B,H,dh,T]
         vn = v_new.view(B_, T_, H, dh).permute(0, 2, 1, 3)   # [B,H,T,dh]
@@ -437,13 +500,13 @@ def decoder_forward(
             raise ValueError("self-KV cache must come from init_kv_cache "
                              "(head-major {'kt','vt'} or int8 layout)")
         h = o.to(cdt).transpose(1, 2).reshape(B_, T_, D_)
-        x = x + dense(h, blk.attn.out)
+        x = x + _row(h, blk.attn.out, tp, n_head)
 
         h = layer_norm(x, blk.cross_ln)
-        h = _cross_attention_head_major(dense(h, blk.cross.q), ckv, H,
-                                        cross_mask, cdt)
-        x = x + dense(h, blk.cross.out)
-        x = x + _mlp(layer_norm(x, blk.mlp_ln), blk.mlp)
+        q, = _column(h, [blk.cross.q], tp, n_head)
+        h = _cross_attention_head_major(q, ckv, H, cross_mask, cdt)
+        x = x + _row(h, blk.cross.out, tp, n_head)
+        x = x + _mlp(layer_norm(x, blk.mlp_ln), blk.mlp, tp)
 
     x = layer_norm(x, dec.ln)
     logits = torch.matmul(x.to(cdt), dec.tok.to(cdt).T).float()

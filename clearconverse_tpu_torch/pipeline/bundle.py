@@ -16,10 +16,20 @@ separation (``separate_batch``) and the word-timestamp alignment pass
 multilingual models without a pinned language detect it per row first
 (``detect_language_from_audio``). ``save_native`` / ``load_native`` keep
 all four families in one ``torch.save`` file with a dims meta block.
+
+On a (data, model) mesh (``TorchConfig.data_axis`` × ``model_axis`` > 1,
+``parallel/``) every rank holds a bundle: batch rows split over ``data``
+and the results are gathered, Whisper's decode runs on this rank's
+tensor-parallel shard over ``model`` (which replaces the whole model once
+per load, so a rank holds only its shard; language detection and word
+alignment run on it too), and the speaker and separation models are
+replicated. Under a serving controller (``parallel/serve.py``) rank 0's
+batched calls are replayed on the other ranks first.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Callable, List, Optional, Sequence
 
@@ -28,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from clearconverse_tpu_torch.config import Config, TorchConfig
+from clearconverse_tpu_torch.models.whisper import tensor_parallel
 from clearconverse_tpu_torch.pipeline.cancel import ProcessingCancelled
 from clearconverse_tpu_torch.utils.errors import is_fatal
 from clearconverse_tpu_torch.utils.tracing import StageTimer
@@ -61,12 +72,11 @@ def _row_bucket(n: int) -> int:
     return b
 
 
-def _pad_rows(arrays, fills):
-    """Pad each array's leading axis to the row bucket with its ``fills``
-    value (1 for lengths, so padded rows stay valid); returns (padded
-    arrays, n_real)."""
+def _pad_rows(arrays, fills, b: int):
+    """Pad each array's leading axis to ``b`` rows with its ``fills`` value
+    (1 for lengths, so padded rows stay valid); returns (padded arrays,
+    n_real)."""
     n_real = len(arrays[0])
-    b = _row_bucket(n_real)
     if b == n_real:
         return arrays, n_real
     out = []
@@ -147,6 +157,18 @@ def iter_store_batches(refs, lens, sr, buckets, batch_size,
                                   [max(min(lens[i], b), 1) for i in sub], b)
 
 
+def _batched(fn):
+    """Marks a bundle method that starts device work. Under a serving
+    controller (``parallel/serve.py``) the call is replayed on every other
+    rank before it runs here."""
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        if self._controller is None:
+            return fn(self, *args, **kwargs)
+        return self._controller.call(self, fn, args, kwargs)
+    return call
+
+
 class ModelBundle:
     """Whisper, RE-SepFormer, PyanNet and ECAPA on one device (``cuda``
     unless the caller passes ``device="cpu"``). Lazy: ``_ensure`` loads on
@@ -190,6 +212,11 @@ class ModelBundle:
         # When set, every decode call records its stages' spans here (see
         # decoding.greedy_decode); StageTimer(sync=True) times device work.
         self.decode_timer: Optional[StageTimer] = None
+        # The (data, model) mesh, built at first use from the TorchConfig
+        # axes; the serving controller on rank 0 of a mesh.
+        self._mesh = None
+        self._mesh_built = False
+        self._controller = None
 
     @property
     def stage_times(self) -> dict:
@@ -198,9 +225,71 @@ class ModelBundle:
     def _put(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), device=self.device)
 
+    # ----------------------------------------------------------------- mesh
+    @property
+    def mesh(self):
+        """The (data, model) mesh of the TorchConfig axes, built at first
+        use (every rank of the process group must reach it together); None
+        at 1×1. A mesh needs a process group with enough ranks and raises
+        without one; this rank runs on the bundle's device."""
+        if not self._mesh_built:
+            cfg = self.torch_config
+            if cfg.data_axis * cfg.model_axis > 1:
+                import torch.distributed as dist
+                from clearconverse_tpu_torch.parallel.mesh import build_mesh
+                world = dist.get_world_size() if dist.is_initialized() else 1
+                self._mesh = build_mesh(cfg.data_axis, cfg.model_axis,
+                                        devices=[self.device] * world)
+            self._mesh_built = True
+        return self._mesh
+
+    def _rows(self, n: int) -> int:
+        """Row bucket, rounded up so the data axis divides it evenly."""
+        rows = _row_bucket(n)
+        d = self.torch_config.data_axis
+        if d > 1 and rows % d:
+            rows = -(-rows // d) * d
+        return max(rows, d)
+
+    def _pad(self, arrays, fills):
+        """``_pad_rows`` to this bundle's row bucket."""
+        return _pad_rows(arrays, fills, self._rows(len(arrays[0])))
+
+    def _by_rows(self, fn, *arrays):
+        """``fn`` over this data rank's block of rows of each host array
+        (put on the device); its tensor result, or tuple of results,
+        gathered over the data axis into host arrays."""
+        from clearconverse_tpu_torch.parallel.mesh import DATA_AXIS
+        from clearconverse_tpu_torch.parallel.sharding import batch_spec
+        mesh = self.mesh
+        split = mesh is not None and mesh.data > 1
+        out = fn(*[self._put(batch_spec(np.asarray(a), mesh)) for a in arrays])
+        outs = out if isinstance(out, tuple) else (out,)
+        if split:
+            outs = tuple(mesh.all_gather(o.contiguous(), DATA_AXIS)
+                         for o in outs)
+        outs = tuple(_host(o) for o in outs)
+        return outs if isinstance(out, tuple) else outs[0]
+
+    def _whisper_on_mesh(self):
+        """(Whisper, dims, tokenizer) as this rank runs it: on a mesh with
+        model > 1, this rank's tensor-parallel shard, which replaces a
+        whole model (once per load) so that the rank holds no more than
+        its shard; the whole model otherwise."""
+        model, dims, tok = self._whisper
+        mesh = self.mesh
+        if mesh is not None and mesh.model > 1 and \
+                tensor_parallel(model) is None:
+            from clearconverse_tpu_torch.parallel.sharding import shard_whisper
+            model = shard_whisper(model, mesh)
+            self._whisper = (model, dims, tok)
+        return model, dims, tok
+
+    @_batched
     def make_store(self, dev_audio, sr: int) -> AudioStore:
         """Wrap [N, T] gated audio as an AudioStore on the bundle's device,
-        adding the 30 s zero tail window gathers rely on."""
+        adding the 30 s zero tail window gathers rely on (on a mesh every
+        rank holds the whole store)."""
         dev = torch.as_tensor(dev_audio, dtype=torch.float32,
                               device=self.device)
         return AudioStore(F.pad(dev, (0, 30 * sr)), sr)
@@ -326,12 +415,19 @@ class ModelBundle:
         return pyannet.init_pyannet(self._pyannet_dims or pyannet.PyannetDims(),
                                     seed=3, device=self.device)
 
+    def check_cancel(self):
+        """Raise ProcessingCancelled when the cancel gate says so."""
+        if self.should_cancel is not None and self.should_cancel():
+            raise ProcessingCancelled()
+
     def _ensure(self):
         """Probe the cancel gate, then load lazily — called at the top of
         every compute method, so no device work starts for a cancelled
-        task."""
-        if self.should_cancel is not None and self.should_cancel():
-            raise ProcessingCancelled()
+        task. Under a serving controller the gate was probed before the call
+        went to the other ranks, and is not probed again: every rank must
+        run the call it was sent."""
+        if self._controller is None:
+            self.check_cancel()
         if not self._loaded and not self.load_with_progress():
             raise RuntimeError("ModelBundle: model loading failed")
 
@@ -446,7 +542,7 @@ class ModelBundle:
             rank_score. Returns {row: (tokens, n, sum_lp, nsp)}."""
             rep = rep_for(temp)
             uidx = np.asarray(row_idx, np.int64)
-            b = _row_bucket(len(uidx))
+            b = self._rows(len(uidx))
             # Pad rows replicate the last row (kept shapes, ignored).
             uidx = np.concatenate([uidx, np.repeat(uidx[-1:], b - len(uidx))])
             idx = np.repeat(uidx, rep)      # prompt rows, replica-consecutive
@@ -532,15 +628,29 @@ class ModelBundle:
         ``_decode_with_fallback``: ``decode_rows(audio_rows, toks_rows,
         lens_rows, temp, replicas)`` decodes host or StoreBatch rows padded
         or trimmed to ``target`` samples, with timestamp tokens when
-        ``timestamps``."""
+        ``timestamps``. On a mesh each data rank decodes its block of the
+        rows on its Whisper shard (sampling noise drawn for the whole batch
+        and sliced, so t > 0 samples as at 1×1) and the packed results are
+        gathered over the data axis."""
         from clearconverse_tpu_torch.models import decoding as dec
+        from clearconverse_tpu_torch.parallel.mesh import DATA_AXIS
         cfg = self.torch_config
-        model, dims, tok = self._whisper
+        model, dims, tok = self._whisper_on_mesh()
         sp = tok.specials
         suppress = self._suppress_ids(tok, timestamps=timestamps)
+        mesh = self.mesh
+        split = mesh is not None and mesh.data > 1
 
         def decode_rows(audio_rows, toks_rows, lens_rows, temp: float,
                         replicas: int = 1):
+            noise_rows = (0, 0)
+            if split:
+                n = audio_rows.shape[0]
+                sl = mesh.rows(n)
+                rs = slice(sl.start * replicas, sl.stop * replicas)
+                audio_rows = audio_rows[sl]
+                toks_rows, lens_rows = toks_rows[rs], lens_rows[rs]
+                noise_rows = (rs.start, n * replicas)
             opts = dec.DecodeOptions(
                 max_tokens=cfg.max_decode_tokens,
                 temperature=temp, eot=sp.eot,
@@ -551,7 +661,8 @@ class ModelBundle:
                 self_kv_bits=cfg.self_kv_bits,
                 no_speech_token=sp.no_speech, sot_from_end=sot_off,
                 timestamps=timestamps, timestamp_begin=sp.timestamp_begin,
-                replicas=replicas, beam=(temp == 0 and replicas > 1))
+                replicas=replicas, beam=(temp == 0 and replicas > 1),
+                noise_rows=noise_rows)
             gen = None
             if temp > 0:
                 self._decode_seed += 1
@@ -571,9 +682,12 @@ class ModelBundle:
                         model, audio_rows, self._put(toks_rows),
                         self._put(lens_rows), dims, opts, max_p, gen,
                         target_len=target, timer=self.decode_timer)
+                if split:
+                    out = {"packed": mesh.all_gather(out["packed"], DATA_AXIS)}
                 return _unpack_decode(out, opts.max_tokens)
         return decode_rows
 
+    @_batched
     def transcribe_batch(self, audio, prompts: Sequence[str],
                          temperature: float = 0.0,
                          word_timestamps: bool = False):
@@ -587,10 +701,10 @@ class ModelBundle:
         pass over the same padded rows → (texts, words)."""
         self._ensure()
         cfg = self.torch_config
-        model, dims, tok = self._whisper
+        model, dims, tok = self._whisper_on_mesh()
         sp = tok.specials
         n_real = len(prompts)
-        rows = _row_bucket(n_real)
+        rows = self._rows(n_real)
         is_store = isinstance(audio, StoreBatch)
         if rows > n_real:
             audio = (audio.pad_rows(rows - n_real) if is_store else
@@ -659,6 +773,7 @@ class ModelBundle:
         return align_batch(model, tok, tokens, lens, feats, dims,
                            prefixes=pres, eot=sp.eot)[:n_real]
 
+    @_batched
     def transcribe_long_batch(self, audio, prompts: Sequence,
                               lengths: Optional[np.ndarray] = None,
                               temperature: float = 0.0):
@@ -677,7 +792,7 @@ class ModelBundle:
         conditioning is off, or the kept result decoded hotter than 0.5."""
         self._ensure()
         cfg = self.torch_config
-        model, dims, tok = self._whisper
+        model, dims, tok = self._whisper_on_mesh()
         sp = tok.specials
         is_store = isinstance(audio, StoreBatch)
         if not is_store:
@@ -687,7 +802,7 @@ class ModelBundle:
             lengths = (audio.lens[:n_real] if is_store
                        else np.full(n_real, audio.shape[1], np.int64))
         window_s = np.minimum(np.asarray(lengths) / 16000.0, 30.0)
-        rows = _row_bucket(n_real)
+        rows = self._rows(n_real)
         if rows > n_real:
             audio = (audio.pad_rows(rows - n_real) if is_store else
                      np.pad(audio, ((0, rows - n_real), (0, 0))))
@@ -751,6 +866,7 @@ class ModelBundle:
         from clearconverse_tpu_torch.models.ecapa import EcapaDims
         return self._ecapa, self._ecapa_dims or EcapaDims()
 
+    @_batched
     @torch.no_grad()
     def embed_batch(self, audio, lengths: Optional[np.ndarray] = None
                     ) -> np.ndarray:
@@ -760,12 +876,13 @@ class ModelBundle:
         audio = np.asarray(audio, np.float32)
         if lengths is None:
             lengths = np.full(audio.shape[0], audio.shape[1], np.int64)
-        (audio, lengths), n_real = _pad_rows([audio, lengths], [0, 1])
+        (audio, lengths), n_real = self._pad([audio, lengths], [0, 1])
         params, dims = self._ecapa_model()
         with self._stage_timer.stage("embed_dev"):
-            return _host(ecapa_embed(params, self._put(audio),
-                                     self._put(lengths), dims))[:n_real]
+            return self._by_rows(lambda a, n: ecapa_embed(params, a, n, dims),
+                                 audio, lengths)[:n_real]
 
+    @_batched
     @torch.no_grad()
     def embed_denoised_batch(self, audio, lengths: np.ndarray,
                              prop_decrease: float, sr: int = 16000
@@ -774,12 +891,12 @@ class ModelBundle:
         spectral-gated, peak-normalized versions, gate and embed on the
         device in one call."""
         self._ensure()
-        (audio, lengths), n_real = _pad_rows(
+        (audio, lengths), n_real = self._pad(
             [np.asarray(audio, np.float32), lengths], [0, 1])
         with self._stage_timer.stage("embed_dev"):
-            emb, _ = self._gate_embed(self._put(audio), self._put(lengths),
-                                      prop_decrease, sr, with_var=False)
-            return _host(emb)[:n_real]
+            return self._by_rows(lambda a, n: self._gate_embed(
+                a, n, prop_decrease, sr, with_var=False)[0],
+                audio, lengths)[:n_real]
 
     def _gate_embed(self, audio: torch.Tensor, lens: torch.Tensor,
                     prop_decrease: float, sr: int, with_var: bool):
@@ -800,13 +917,14 @@ class ModelBundle:
         var = (((audio - mean[:, None]) * mask) ** 2).sum(dim=-1) / lf
         return emb, var
 
+    @_batched
     @torch.no_grad()
     def segment_frames(self, audio) -> np.ndarray:
         """[B, T] window chunks → [B, F, 3] per-frame speaker activities."""
         self._ensure()
-        (audio,), n_real = _pad_rows([np.asarray(audio, np.float32)], [0])
+        (audio,), n_real = self._pad([np.asarray(audio, np.float32)], [0])
         with self._stage_timer.stage("segment_dev"):
-            return _host(self._segment(self._put(audio)))[:n_real]
+            return self._by_rows(self._segment, audio)[:n_real]
 
     def _segment(self, audio: torch.Tensor) -> torch.Tensor:
         from clearconverse_tpu_torch.models.pyannet import (
@@ -816,11 +934,11 @@ class ModelBundle:
                                                       dims))
 
     def _store_args(self, rows, starts, lens):
-        (rows, starts, lens), n_real = _pad_rows(
-            [np.asarray(rows, np.int32), np.asarray(starts, np.int32),
-             np.asarray(lens, np.int32)], [0, 0, 1])
-        return self._put(rows), self._put(starts), self._put(lens), n_real
+        return self._pad([np.asarray(rows, np.int32),
+                          np.asarray(starts, np.int32),
+                          np.asarray(lens, np.int32)], [0, 0, 1])
 
+    @_batched
     @torch.no_grad()
     def embed_store(self, store: AudioStore, rows, starts, lens,
                     bucket: int) -> np.ndarray:
@@ -828,12 +946,17 @@ class ModelBundle:
         self._ensure()
         from clearconverse_tpu_torch.models.decoding import gather_windows
         from clearconverse_tpu_torch.models.ecapa import ecapa_embed
-        r, s, ln, n_real = self._store_args(rows, starts, lens)
+        args, n_real = self._store_args(rows, starts, lens)
         params, dims = self._ecapa_model()
-        with self._stage_timer.stage("embed_dev"):
-            audio = gather_windows(store.dev, r, s, ln, bucket)
-            return _host(ecapa_embed(params, audio, ln, dims))[:n_real]
 
+        def embed(r, s, ln):
+            audio = gather_windows(store.dev, r, s, ln, bucket)
+            return ecapa_embed(params, audio, ln, dims)
+
+        with self._stage_timer.stage("embed_dev"):
+            return self._by_rows(embed, *args)[:n_real]
+
+    @_batched
     @torch.no_grad()
     def embed_frames_store(self, store: AudioStore, rows, fstarts, totals,
                            frame: int, pad: int) -> np.ndarray:
@@ -844,24 +967,28 @@ class ModelBundle:
         ``totals[i]`` valid."""
         self._ensure()
         from clearconverse_tpu_torch.models.ecapa import ecapa_embed
-        (rows, fstarts, totals), n_real = _pad_rows(
+        args, n_real = self._pad(
             [np.asarray(rows, np.int32), np.asarray(fstarts, np.int32),
              np.asarray(totals, np.int32)], [0, 0, 1])
         params, dims = self._ecapa_model()
         frame, pad = int(frame), int(pad)
-        with self._stage_timer.stage("embed_dev"):
-            dev = store.dev
-            r = self._put(rows).long().clamp(0, dev.shape[0] - 1)
-            s = self._put(fstarts).long().clamp(0, dev.shape[1] - frame)
+        dev = store.dev
+
+        def embed(r, s, tot):
+            r = r.long().clamp(0, dev.shape[0] - 1)
+            s = s.long().clamp(0, dev.shape[1] - frame)
             idx = s[:, :, None] + torch.arange(frame, device=dev.device)
-            clips = dev[r[:, None, None], idx].reshape(len(rows), -1)[:, :pad]
+            clips = dev[r[:, None, None], idx].reshape(len(r), -1)[:, :pad]
             if clips.shape[1] < pad:       # fstarts under-provisioned
                 clips = F.pad(clips, (0, pad - clips.shape[1]))
-            tot = self._put(totals)
             mask = (torch.arange(pad, device=dev.device)[None, :]
                     < tot[:, None]).to(clips.dtype)
-            return _host(ecapa_embed(params, clips * mask, tot, dims))[:n_real]
+            return ecapa_embed(params, clips * mask, tot, dims)
 
+        with self._stage_timer.stage("embed_dev"):
+            return self._by_rows(embed, *args)[:n_real]
+
+    @_batched
     @torch.no_grad()
     def embed_denoised_store(self, store: AudioStore, rows, starts, lens,
                              prop_decrease: float, bucket: int,
@@ -872,15 +999,21 @@ class ModelBundle:
         the (possibly still downloading) audio."""
         self._ensure()
         from clearconverse_tpu_torch.models.decoding import gather_windows
-        r, s, ln, n_real = self._store_args(rows, starts, lens)
-        with self._stage_timer.stage("embed_dev"):
+        args, n_real = self._store_args(rows, starts, lens)
+
+        def embed(r, s, ln):
             audio = gather_windows(store.dev, r, s, ln, bucket)
             emb, var = self._gate_embed(audio, ln, prop_decrease, store.sr,
                                         with_var)
-            if with_var:
-                return _host(emb)[:n_real], _host(var)[:n_real]
-            return _host(emb)[:n_real]
+            return (emb, var) if with_var else emb
 
+        with self._stage_timer.stage("embed_dev"):
+            out = self._by_rows(embed, *args)
+            if with_var:
+                return out[0][:n_real], out[1][:n_real]
+            return out[:n_real]
+
+    @_batched
     @torch.no_grad()
     def segment_frames_store(self, store: AudioStore, rows, starts,
                              window: int) -> np.ndarray:
@@ -889,35 +1022,43 @@ class ModelBundle:
         the host version's zero-padded final windows."""
         self._ensure()
         from clearconverse_tpu_torch.models.decoding import gather_windows
-        r, s, ln, n_real = self._store_args(rows, starts,
-                                            np.full(len(rows), window))
+        args, n_real = self._store_args(rows, starts,
+                                        np.full(len(rows), window))
+
+        def segment(r, s, ln):
+            return self._segment(gather_windows(store.dev, r, s, ln, window))
+
         with self._stage_timer.stage("segment_dev"):
-            audio = gather_windows(store.dev, r, s, ln, window)
-            return _host(self._segment(audio))[:n_real]
+            return self._by_rows(segment, *args)[:n_real]
 
     @property
     def frame_hop_seconds(self) -> float:
         from clearconverse_tpu_torch.models.pyannet import PyannetDims
         return (self._pyannet_dims or PyannetDims()).frame_hop_seconds
 
+    @_batched
     @torch.no_grad()
     def separate_batch(self, audio) -> np.ndarray:
         """[B, T] mixtures → [B, T, 2] separated sources (host f32), rows
         padded to the row bucket on the device."""
         self._ensure()
         from clearconverse_tpu_torch.models.resepformer import sepformer_separate
-        (audio,), n_real = _pad_rows([np.asarray(audio, np.float32)], [0])
+        (audio,), n_real = self._pad([np.asarray(audio, np.float32)], [0])
         with self._stage_timer.stage("separate_dev"):
-            return _host(sepformer_separate(self._sepformer,
-                                            self._put(audio)))[:n_real]
+            return self._by_rows(
+                lambda a: sepformer_separate(self._sepformer, a),
+                audio)[:n_real]
 
     # ---------------------------------------------------------- checkpoints
+    @_batched
     def save_native(self, path: str) -> None:
         """All four model families in one ``torch.save`` file, each in its
         reference checkpoint's names (openai Whisper, speechbrain ECAPA,
         pyannote PyanNet, the speechbrain RE-SepFormer triplet) as f32 CPU
         tensors, with every family's dims in a ``meta`` block so the file
-        describes itself: a tiny or custom model round-trips exactly."""
+        describes itself: a tiny or custom model round-trips exactly. On a
+        mesh a sharded Whisper is gathered whole over the model axis (every
+        rank takes part) and the mesh's rank 0 writes."""
         self._ensure()
         import dataclasses
         import os
@@ -933,6 +1074,13 @@ class ModelBundle:
                     for k, v in sd.items()}
 
         model, w_dims, _ = self._whisper
+        mesh = self.mesh
+        if tensor_parallel(model) is not None:
+            from clearconverse_tpu_torch.parallel.sharding import (
+                unshard_whisper)
+            model = unshard_whisper(model, mesh)
+        if mesh is not None and mesh.rank != 0:
+            return
         sep = self._sepformer
         payload = {
             "whisper": tensors(whisper_to_openai_state_dict(model)),
@@ -954,6 +1102,7 @@ class ModelBundle:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         torch.save(payload, path)
 
+    @_batched
     def load_native(self, path: str) -> None:
         """Restore a ``save_native`` file onto the bundle's device. Dims
         come from its ``meta`` block; a file without one falls back to the

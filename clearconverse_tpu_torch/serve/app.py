@@ -658,11 +658,19 @@ def create_app(output_dir: str = "processed_audio",
 
 def main():
     """Serve on ``API_HOST``:``API_PORT``. Outside dev mode the engine runs
-    on the card, so a missing CUDA device stops the start here."""
-    from clearconverse_tpu_torch.config import load_environment
+    on the card, so a missing CUDA device stops the start here.
+
+    With ``CC_TORCH_DATA_AXIS`` × ``CC_TORCH_MODEL_AXIS`` > 1 the server
+    runs under torchrun, one rank a card (``torchrun --nproc-per-node N -m
+    clearconverse_tpu_torch.serve``): rank 0 serves HTTP/WS with its
+    engine's bundle leading the mesh, every other rank follows its calls
+    (parallel/serve.py)."""
+    from clearconverse_tpu_torch.config import (
+        load_environment, torch_config_from_env)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)s] %(message)s")
     env = load_environment()
+    factory, controller = None, None
     if os.environ.get("CC_TPU_FAKE_MODELS") != "1":
         import torch
         if not torch.cuda.is_available():
@@ -671,14 +679,48 @@ def main():
                 "the engine runs on the card. Set CC_TPU_FAKE_MODELS=1 for "
                 "the weight-free dev backend on the CPU.")
         logger.info("CUDA device: %s", torch.cuda.get_device_name(0))
+        tc = torch_config_from_env()
+        if tc.data_axis * tc.model_axis > 1:
+            engine, controller = _join_serving_mesh(env, tc)
+            if engine is None:
+                return           # a follower: rank 0 has closed
+            factory = lambda: engine  # noqa: E731
     # Model directory scaffold (reference setup_model_directories,
     # back/api.py:2791-2807): where checkpoints/ft overlays are looked up.
     for sub in ("", "whisper", "whisper-ft", "resepformer-ft", "embedding",
                 "segmentation"):
         os.makedirs(os.path.join(env["model_cache_dir"], sub), exist_ok=True)
-    app = create_app()
+    app = create_app(engine_factory=factory)
     app.cors_origins = env["cors_origins"]
-    app.run(env["api_host"], env["api_port"])
+    try:
+        app.run(env["api_host"], env["api_port"])
+    finally:
+        if controller is not None:
+            controller.close()
+
+
+# A follower waits for rank 0's next call as long as the server is idle.
+_SERVING_COLLECTIVE_TIMEOUT_S = 30 * 24 * 3600.0
+
+
+def _join_serving_mesh(env, tc):
+    """Join torchrun's process group, one card a rank. Rank 0 returns (its
+    engine, whose bundle leads the mesh, the controller); every other rank
+    follows rank 0's calls on a bundle of its own and returns (None, None)
+    once rank 0 closes."""
+    from clearconverse_tpu_torch.config import Config
+    from clearconverse_tpu_torch.parallel.mesh import init_process_group
+    from clearconverse_tpu_torch.parallel.serve import follow, lead
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    from clearconverse_tpu_torch.serve.factory import default_engine_factory
+
+    device = init_process_group(timeout_s=_SERVING_COLLECTIVE_TIMEOUT_S)
+    if int(os.environ["RANK"]) != 0:
+        follow(ModelBundle(Config(auth_token=env["hf_auth_token"]), tc,
+                           env["model_cache_dir"], device=device))
+        return None, None
+    engine = default_engine_factory()
+    return engine, lead(engine.models)
 
 
 if __name__ == "__main__":

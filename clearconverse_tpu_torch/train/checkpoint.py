@@ -29,15 +29,15 @@ from clearconverse_tpu_torch.models.whisper import Whisper, WhisperDims
 
 
 def save_checkpoint(path: str, model: torch.nn.Module,
-                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    opt_state: Optional[Dict[str, Any]] = None,
                     step: int = 0) -> None:
-    """One file: the module's state dict as CPU tensors, the optimizer's
+    """One file: the module's state dict as CPU tensors, an optimizer's
     state dict (when given) and the step count."""
     payload: Dict[str, Any] = {
         "params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
         "step": int(step)}
-    if optimizer is not None:
-        payload["opt_state"] = optimizer.state_dict()
+    if opt_state is not None:
+        payload["opt_state"] = opt_state
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save(payload, path)
 

@@ -6,7 +6,8 @@ as device tensors (no host read inside the step). The loss runs the
 inference forward passes (``whisper_encode`` with kernel K2 on CUDA, whose
 backward recomputes through the plain attention; ``precompute_cross_kv``;
 one ``decoder_forward`` over the whole target sequence), so what is trained
-is what is served. The parallel mesh is ROADMAP.md queue 1, item 9.
+is what is served. On a (data, model) mesh the step trains this rank's
+tensor-parallel shard on its data rank's rows of the global batch.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from clearconverse_tpu_torch.models.whisper import (
     Whisper, WhisperDims, decoder_forward, init_kv_cache, precompute_cross_kv,
-    whisper_encode)
+    tensor_parallel, whisper_encode)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -61,7 +62,8 @@ def whisper_loss_sums(model: Whisper, batch: Batch, dims: WhisperDims,
     def forward(mel, tokens):
         audio = whisper_encode(model, mel, dims, compute_dtype)
         cross_kv = precompute_cross_kv(model, audio, dims.n_text_head, bits=16)
-        self_kv = init_kv_cache(dims, B, L, compute_dtype, device=dev)
+        self_kv = init_kv_cache(dims, B, L, compute_dtype, device=dev,
+                                tp=tensor_parallel(model))
         pos = torch.arange(L, device=dev)[None, :].expand(B, L)
         k = torch.arange(L, device=dev)[None, None, None, :]
         q = torch.arange(L, device=dev)[None, None, :, None]
@@ -97,7 +99,9 @@ class ClippedAdamW(torch.optim.AdamW):
     """AdamW after a clip by global norm, written to optax's
     ``clip_by_global_norm`` rule: when the norm of all gradients reaches
     ``clip``, every gradient becomes g / norm * clip (no epsilon). The clip
-    runs on the device, without reading the norm back."""
+    runs on the device, without reading the norm back. ``norm`` passes the
+    global norm in when the parameters are shards of a larger model (the
+    mesh step takes it over the model axis)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], clip: float,
                  **kwargs):
@@ -105,12 +109,13 @@ class ClippedAdamW(torch.optim.AdamW):
         self.clip = float(clip)
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, norm: Optional[torch.Tensor] = None):
         grads = [p.grad for group in self.param_groups
                  for p in group["params"] if p.grad is not None]
         if grads:
-            norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g.float()) for g in grads]))
+            if norm is None:
+                norm = torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(g.float()) for g in grads]))
             keep = norm < self.clip
             div = torch.where(keep, torch.ones_like(norm), norm)
             mul = torch.where(keep, torch.ones_like(norm),
@@ -153,34 +158,50 @@ def make_train_step(dims: WhisperDims, mesh=None,
     backpropagated, and the summed gradients divide by the global token
     count before the clip, which equals the full-batch gradient at
     1/accum_steps of the activation memory. ``remat`` recomputes forward
-    activations in the backward pass."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a device mesh is not ported yet: ROADMAP.md queue 1, "
-            "item 9")
+    activations in the backward pass.
+
+    With a ``mesh`` (``parallel/``), ``state.model`` is this rank's
+    ``shard_whisper`` shard and ``batch`` the global batch: each microbatch
+    splits its rows over the data axis, the gradients, loss sums and token
+    counts are summed over the data axis before the division, and the clip
+    takes the global norm of the whole model over the model axis, so the
+    update equals the 1×1 step's."""
+    from clearconverse_tpu_torch.parallel.mesh import DATA_AXIS
+    from clearconverse_tpu_torch.parallel.sharding import batch_spec
+    d = 1 if mesh is None else mesh.data
 
     def step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         b = batch["tokens"].shape[0]
-        if b % accum_steps:
+        if b % (accum_steps * d):
             raise ValueError(f"batch {b} not divisible by "
-                             f"accum_steps={accum_steps}")
+                             f"accum_steps={accum_steps} x data={d}")
         mb = b // accum_steps
         state.optimizer.zero_grad(set_to_none=True)
         s = n = c = None
         for i in range(accum_steps):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            micro = {k: batch_spec(v[i * mb:(i + 1) * mb], mesh)
+                     for k, v in batch.items()}
             sum_nll, (n_tok, n_correct) = whisper_loss_sums(
                 state.model, micro, dims, compute_dtype, remat)
             sum_nll.backward()
             s = sum_nll.detach() if s is None else s + sum_nll.detach()
             n = n_tok if n is None else n + n_tok
             c = n_correct if c is None else c + n_correct
+        params = [p for p in state.model.parameters() if p.grad is not None]
+        if d > 1:
+            sums = mesh.all_reduce(torch.stack([s, n, c]), DATA_AXIS)
+            s, n, c = sums[0], sums[1], sums[2]
+            for p in params:
+                mesh.all_reduce(p.grad, DATA_AXIS)
         denom = n.clamp(min=1.0)
         with torch.no_grad():
-            for p in state.model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(denom)
-        state.optimizer.step()
+            for p in params:
+                p.grad.div_(denom)
+        tp = tensor_parallel(state.model)
+        if tp is None:
+            state.optimizer.step()
+        else:
+            state.optimizer.step(norm=tp.grad_norm(state.model))
         state.step += 1
         return {"loss": s / denom, "accuracy": c / denom}
 

@@ -177,16 +177,23 @@ def test_sampling_rung_uses_best_of_replicas(bundles):
 
 @pytest.mark.parametrize("entry", ["make_train_step", "train_cli"])
 def test_unported_methods_name_their_roadmap_item(entry, tmp_path):
-    """What is left unported (training on a device mesh) raises naming its
-    ROADMAP item."""
+    """Training on a device mesh (once ROADMAP item 9) is ported, and its
+    entry points refuse what they cannot run instead of training at 1x1:
+    the mesh step a batch that does not split over the data axis, the CLI
+    a mesh without a process group of ranks (naming how to start one)."""
     if entry == "make_train_step":
+        from clearconverse_tpu_torch.parallel.mesh import Mesh
         from clearconverse_tpu_torch.train.finetune import make_train_step
-        call = lambda: make_train_step(WhisperDims(**KW), mesh="2x1")  # noqa: E731
+        mesh = Mesh(3, 1, 0, torch.device("cpu"), "gloo", {})
+        step = make_train_step(WhisperDims(**KW), mesh=mesh)
+        call = lambda: step(None, {"tokens": torch.zeros((4, 6))})  # noqa: E731
+        raises, match = ValueError, "batch 4 not divisible by .* data=3"
     else:
         from clearconverse_tpu_torch.train.__main__ import main
         call = lambda: main(["--data_dir", str(tmp_path), "--mesh", "2x1",  # noqa: E731
                              "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
+        raises, match = RuntimeError, "torchrun"
+    with pytest.raises(raises, match=match):
         call()
 
 

@@ -1,9 +1,10 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version, the wrappers' input checks, a tiny transcription (and an int4
 cross-KV decode) on the card against the same on the CPU, the speaker and
-separation models card vs CPU, a tiny dress-rehearsal round trip on the card
-and the bench's hot-path line. Every test needs a CUDA card and skips
-without one.
+separation models card vs CPU, a tiny dress-rehearsal round trip on the card,
+the bench's hot-path line, int8 decoder weights card vs CPU and two mesh
+ranks sharing the card. Every test needs a CUDA card and skips without
+one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without JAX. tests/conftest.py imports JAX, so there run it as:
@@ -543,3 +544,47 @@ def test_whisper_ft_overlay_loads_on_card(cuda, tmp_path, caplog):
     got = dict(model.named_parameters())
     for name, p in written.named_parameters():
         assert torch.equal(got[name], p), name
+
+
+def test_quantized_dense_on_card_matches_cpu(cuda):
+    """An int8 linear (ops/quantize) on the card against the CPU at f32
+    (atol 1e-5), and a tiny int8-decoder greedy decode: identical tokens."""
+    from clearconverse_tpu_torch.models import decoding
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.whisper import WhisperDims, dense
+    from clearconverse_tpu_torch.ops import quantize as q
+
+    lin = torch.nn.Linear(64, 48)
+    qlin = q.QuantizedLinear.from_linear(lin)
+    x = _randn((4, 64), 3)
+    np.testing.assert_allclose(dense(x.to(cuda), qlin.to(cuda)).cpu().numpy(),
+                               dense(x, qlin.cpu()).numpy(), atol=1e-5)
+    dims = WhisperDims(n_mels=16, n_vocab=64, n_audio_ctx=25,
+                       n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+                       n_text_ctx=24, n_text_state=128, n_text_head=2,
+                       n_text_layer=2)
+    model = q.quantize_whisper_decoder(init_whisper(dims, 0, "cpu"))
+    mel = _randn((2, 16, 50), 4, 0.3)
+    toks, lens = decoding.build_prompt_batch([[1], [1]], 1, pad_id=0)
+    opts = decoding.DecodeOptions(max_tokens=8, eot=63, suppress_blank=False)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        out[dev.type] = decoding.greedy_decode(
+            model.to(dev), mel.to(dev), torch.from_numpy(toks).to(dev),
+            torch.from_numpy(lens).to(dev), dims, opts, 1)["tokens"].cpu()
+    assert torch.equal(out["cuda"], out["cpu"])
+
+
+def test_two_mesh_ranks_share_the_card(cuda):
+    """Two spawned ranks on cuda:0 over gloo: transcribe_batch at 1x2 and
+    2x1 gives the 1x1 card texts, with K1 and K2 launching on each rank."""
+    import torch_mesh_worker
+    from clearconverse_tpu_torch.entry import _serving_transcribe
+    from clearconverse_tpu_torch.parallel.launch import run_group
+
+    want = _serving_transcribe("cuda:0", 1, 1)
+    got = run_group(torch_mesh_worker.card_pair, ["cuda:0", "cuda:0"],
+                    timeout_s=300)
+    for mesh, (texts, counts) in got.items():
+        assert texts == want, mesh
+        assert all(k1n > 0 and k2n > 0 for k1n, k2n in counts), (mesh, counts)

@@ -5,7 +5,8 @@ the bench's, the eval package's and the entry's imports, and a tiny
 dress-rehearsal set written and loaded back, a fine-tune step with its
 whisper-ft overlay read back, beam search and a native bundle checkpoint run
 in a process where both are refused at import, and so is the safetensors
-package, which a deployment may lack."""
+package, which a deployment may lack. Spawned mesh ranks refuse the same
+three and run a 1x2 transcription."""
 
 import ast
 import os
@@ -148,7 +149,7 @@ _SCRIPT = textwrap.dedent("""
                 "targets": toks, "loss_mask": torch.ones(2, 4)})
     assert torch.isfinite(metrics["loss"]), metrics
     save_checkpoint(os.path.join(model_dir, "train.pt"), state.model,
-                    state.optimizer, state.step)
+                    state.optimizer.state_dict(), state.step)
     assert load_checkpoint(os.path.join(model_dir, "train.pt"))["step"] == 1
     export_whisper_ft(state.model, model_dir)
     tuned, _ = load_whisper(model_dir, "small.en", "cpu")
@@ -175,3 +176,14 @@ def test_transcribe_runs_with_jax_blocked():
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ISOLATED-OK" in proc.stdout
+
+
+def test_spawned_ranks_run_with_jax_blocked():
+    """Two CPU ranks (parallel/launch.run_group) each refuse jax, the JAX
+    package and safetensors at import, then transcribe on a 1x2 mesh; a
+    rank fails if any of them was loaded at all."""
+    import torch_mesh_worker
+    from clearconverse_tpu_torch.parallel.launch import run_group
+    texts = run_group(torch_mesh_worker.isolated_rank, ["cpu", "cpu"],
+                      timeout_s=300)
+    assert len(texts) == 3 and all(isinstance(t, str) for t in texts)

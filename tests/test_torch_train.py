@@ -271,7 +271,8 @@ def test_checkpoint_round_trip_resumes(params, tmp_path):
     step = tft.make_train_step(TINY, compute_dtype=torch.float32)
     state, _ = _torch_step(params, _batch(seed=8), steps=2)
     path = str(tmp_path / "ck" / "train.pt")
-    save_checkpoint(path, state.model, state.optimizer, state.step)
+    save_checkpoint(path, state.model, state.optimizer.state_dict(),
+                    state.step)
     ck = load_checkpoint(path)
     assert ck["step"] == 2
     model = _model(params)
