@@ -128,6 +128,20 @@ Phases, each fatal on failure:
                and 128, t=0, 32 tokens: step time, peak memory, valid
                token ids, K1/K2 launches. Two ranks on one card share it,
                so no speed of the mesh is taken.
+ 18. decode graphs — on the rehearsal bundle's small.en, the token loop as
+               CUDA graphs (models/decode_graph.py, the default route of
+               every CUDA decode above) against the eager loop: identical
+               tokens and texts at t=0 in bf16 and f32 on phase 4's rows,
+               and an identical packed result on the bench hot path's
+               B=128 call; then the hot path's call (96 tokens, EOT off) at
+               B = 8, 32 and 128 in bf16, eager and graph in turns: step
+               ms, call wall and RTFx, capture seconds, replays, stop-flag
+               reads (at most ceil(steps / K) + 1), arena and graph-pool
+               GB, peak memory against eager; with --profile, the card's
+               busy share of one B=128 call on each route.
+Every phase runs with the decode graphs' counts set to 0 before it; the
+phases that decode on the card (GRAPH_PHASES) and every bench block must
+have replayed graphs.
 Then it prints the kernels JSON line, the card's name and power limit, and,
 last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -144,6 +158,7 @@ Without a CUDA card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -2404,6 +2419,176 @@ def phase_mesh_quantize(bundle, host_batch):
             "int8_decoder": int8}
 
 
+# ------------------------------------------- decode graphs (phase 18)
+
+# The phases whose card decodes take the default route (phases 3-11, 13,
+# 16-18); the train phases decode nothing and the bench runs elsewhere.
+GRAPH_PHASES = ("slice", "main", "engine", "engine_parity", "overlap",
+                "overlap_parity", "serve", "rehearsal", "int4", "parity",
+                "beam_language_native", "mesh_quantize", "decode_graphs")
+
+GRAPH_BATCHES = (8, 32, 128)
+GRAPH_TOKENS = 96       # the bench hot path's decode length
+
+
+@contextlib.contextmanager
+def eager_route():
+    """The token loop's eager route on the card, for the graphs' reference
+    (decoding._graph_route is the route's one decision)."""
+    from clearconverse_tpu_torch.models import decoding
+    orig = decoding._graph_route
+    decoding._graph_route = lambda model, dev: False
+    try:
+        yield
+    finally:
+        decoding._graph_route = orig
+
+
+def hot_path_call(model, dims, B: int, cdt):
+    """The bench hot path's decode at B rows (30 s of seeded noise, [SOT]
+    prompts, EOT off so every row decodes GRAPH_TOKENS tokens, int8
+    cross-KV): a function of an optional StageTimer."""
+    from clearconverse_tpu_torch.audio.mel import log_mel_auto
+    from clearconverse_tpu_torch.models import decoding
+
+    audio = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B, WINDOW)).astype(np.float32) * 0.1).cuda()
+    toks, lens = decoding.build_prompt_batch([[50257]] * B, 1, 50256)
+    toks, lens = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
+    opts = decoding.DecodeOptions(
+        max_tokens=GRAPH_TOKENS, eot=-1, suppress_blank=False,
+        compute_dtype=cdt, cross_kv_bits=8)
+
+    def call(timer=None):
+        mel = log_mel_auto(audio, n_mels=dims.n_mels)
+        return decoding.greedy_decode(model, mel, toks, lens, dims, opts, 1,
+                                      timer=timer)
+    return call
+
+
+def graph_call_record(call, graphs, timer):
+    """One call with the decode graphs' counts taken around it."""
+    from clearconverse_tpu_torch.models import decode_graph
+    before = dict(graphs.stats)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = call(timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = {k: graphs.stats[k] - before[k] for k in before}
+    rec = {"wall_s": wall, "steps": out["steps"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "replays": d["replays"], "flag_reads": d["flag_reads"],
+           "captures": d["captures"], "capture_s": d["capture_s"],
+           "flag_read_limit": -(-out["steps"] // decode_graph.K) + 1}
+    if timer is not None:
+        rec["step_ms"] = (timer.as_dict()["token_loop"]
+                          - timer.as_dict().get("graph_capture", 0.0)) \
+            / max(out["steps"] - 1, 1) * 1e3
+    return out, rec
+
+
+def phase_decode_graphs(bundle, host_batch, profile: bool):
+    """Phase 18: the token loop as CUDA graphs against the eager loop on
+    the rehearsal bundle's small.en: identical tokens at t=0 in bf16 and
+    f32 on phase 4's rows (transcribe_batch) and on the bench hot path's
+    B=128; then the hot path's call at B = 8, 32, 128 in bf16, eager and
+    graph in turns: step ms, call wall and RTFx, replays, stop-flag reads,
+    capture seconds, arena and pool GB, peak memory against eager."""
+    from clearconverse_tpu_torch.models import decode_graph
+    from clearconverse_tpu_torch.utils.tracing import StageTimer
+
+    model, dims, _ = bundle._whisper
+    graphs = decode_graph.graphs_for(model)
+    base = bundle.torch_config
+    identity = {}
+    try:
+        for cdt, name in ((torch.bfloat16, "bfloat16"),
+                          (torch.float32, "float32")):
+            bundle.torch_config = dataclasses.replace(base, compute_dtype=name)
+            rows = {}
+            for route in ("eager", "graph"):
+                with eager_route() if route == "eager" \
+                        else contextlib.nullcontext():
+                    rows[route] = transcribe_tokens(
+                        bundle, np.asarray(host_batch), [""] * N_SEG)
+            hot = {}
+            for route in ("eager", "graph"):
+                call = hot_path_call(model, dims, 128, cdt)
+                with eager_route() if route == "eager" \
+                        else contextlib.nullcontext():
+                    out = call()
+                hot[route] = (out["packed"].cpu(), out["steps"])
+            identity[name] = {
+                "rows8_tokens_identical": bool(np.array_equal(
+                    rows["eager"][1], rows["graph"][1])),
+                "rows8_texts_identical": rows["eager"][0] == rows["graph"][0],
+                "b128_packed_identical": bool(torch.equal(
+                    hot["eager"][0], hot["graph"][0])),
+                "b128_steps": [hot["eager"][1], hot["graph"][1]]}
+            graphs.release()
+            torch.cuda.empty_cache()
+            log(f"[graphs] t=0 {name}: graph vs eager {identity[name]}")
+            if not all(v for k, v in identity[name].items()
+                       if k != "b128_steps"):
+                raise SystemExit(f"graphs: the graph route differs from the "
+                                 f"eager loop in {name}")
+    finally:
+        bundle.torch_config = base
+
+    timing = {}
+    for B in GRAPH_BATCHES:
+        call = hot_path_call(model, dims, B, torch.bfloat16)
+        graphs.release()
+        torch.cuda.empty_cache()
+        with eager_route():
+            _, eager1 = graph_call_record(call, graphs, StageTimer(sync=True))
+        _, capture = graph_call_record(call, graphs, StageTimer(sync=True))
+        _, graph1 = graph_call_record(call, graphs, StageTimer(sync=True))
+        arena_gb = graphs.arena_bytes / 1e9
+        pool_gb = graphs.pool_bytes() / 1e9
+        with eager_route():
+            _, eager2 = graph_call_record(call, graphs, None)
+        _, graph2 = graph_call_record(call, graphs, None)
+        run = {"eager": [eager1, eager2], "capture_call": capture,
+               "graph": [graph1, graph2], "arena_gb": arena_gb,
+               "pool_gb": pool_gb,
+               "rtfx": {"eager": B * 30.0 / eager2["wall_s"],
+                        "graph": B * 30.0 / graph2["wall_s"]},
+               "peak_vs_eager": graph1["peak_mem_gb"] / eager1["peak_mem_gb"]}
+        timing[B] = run
+        log(f"[graphs] B={B} bf16 hot path, {GRAPH_TOKENS} tokens: step ms "
+            f"eager {eager1['step_ms']:.3f}, graph {graph1['step_ms']:.3f}; "
+            f"call wall eager {eager2['wall_s']:.3f} s, graph "
+            f"{graph2['wall_s']:.3f} s (RTFx {run['rtfx']['eager']:.0f} / "
+            f"{run['rtfx']['graph']:.0f}); capture {capture['captures']} in "
+            f"{capture['capture_s']:.3f} s; replays {graph1['replays']}, "
+            f"stop-flag reads {graph1['flag_reads']} (limit "
+            f"{graph1['flag_read_limit']}); arena {arena_gb:.3f} GB, pool "
+            f"{pool_gb:.3f} GB; peak {graph1['peak_mem_gb']:.3f} GB against "
+            f"eager {eager1['peak_mem_gb']:.3f} GB "
+            f"({run['peak_vs_eager']:.3f}x)")
+        for rec in (capture, graph1, graph2):
+            if rec["replays"] == 0 or rec["flag_reads"] > rec["flag_read_limit"]:
+                raise SystemExit(f"graphs: B={B} replays {rec['replays']}, "
+                                 f"stop-flag reads {rec['flag_reads']}")
+        if capture["captures"] != 1 or graph1["captures"] or graph2["captures"]:
+            raise SystemExit(f"graphs: B={B} captured at the wrong call")
+    res = {"identity": identity, "timing": timing,
+           "stats": dict(graphs.stats), "k": decode_graph.K}
+    if profile:
+        call = hot_path_call(model, dims, 128, torch.bfloat16)
+        call()
+        with eager_route():
+            res["profile_eager"] = profile_call(
+                call, timing[128]["eager"][1]["wall_s"], "graphs-eager")
+        res["profile_graph"] = profile_call(
+            call, timing[128]["graph"][1]["wall_s"], "graphs-graph")
+    graphs.release()
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------- --cards N: one card a rank
 
 def _free_port() -> int:
@@ -2605,12 +2790,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     phase_s = {}
+    graph_counts = {}
 
     def timed(name, fn, *a):
+        """One phase, timed, with the decode graphs' counts set to 0 just
+        before it and read just after."""
+        from clearconverse_tpu_torch.models import decode_graph
+        for key in decode_graph.COUNTS:
+            decode_graph.COUNTS[key] = 0
         t0 = time.perf_counter()
         out = fn(*a)
         phase_s[name] = time.perf_counter() - t0
-        log(f"[phase] {name}: {phase_s[name]:.1f} s")
+        graph_counts[name] = dict(decode_graph.COUNTS)
+        log(f"[phase] {name}: {phase_s[name]:.1f} s; decode graphs "
+            f"{graph_counts[name]}")
         return out
 
     build_s, sass = timed("build", phase_build)
@@ -2647,10 +2840,24 @@ def main() -> int:
                      os.path.join(rehearsal_dir, "models"), rehearsal_dir)
         mesh = timed("mesh_quantize", phase_mesh_quantize, rbundle,
                      host_batch)
+        graphs = timed("decode_graphs", phase_decode_graphs, rbundle,
+                       host_batch, args.profile)
         del rbundle
     finally:
         shutil.rmtree(seeded_dir, ignore_errors=True)
         shutil.rmtree(rehearsal_dir, ignore_errors=True)
+    # Every phase whose card work decodes through the default path must
+    # have replayed decode graphs (the bench runs in its own process: its
+    # line's blocks carry their replays).
+    no_replays = [name for name in GRAPH_PHASES
+                  if graph_counts[name]["replays"] == 0]
+    no_replays += [f"bench.{b}" for b in ("hot_path", "engine",
+                                          "engine_ref_default",
+                                          "engine_overlap")
+                   if bench["line"][b].get("graph_replays", 0) == 0]
+    log(f"[graphs] replays by phase {graph_counts}")
+    if no_replays:
+        raise SystemExit(f"no decode graph replayed in {no_replays}")
     bench_launches = bench["line"]["hot_path"]["launches"]
     for r in rows:
         r["launches_by_path"] = {
@@ -2681,7 +2888,9 @@ def main() -> int:
               "rehearsal": rehearsal, "int4": int4, "bench": bench,
               "parity": parity_recipe, "train": train,
               "train_parity": train_parity, "beam_language_native": beam,
-              "mesh_quantize": mesh, "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
+              "mesh_quantize": mesh, "decode_graphs": graphs,
+              "graph_counts": graph_counts, "phase_s": phase_s,
+              "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as fh:
         json.dump(report, fh, indent=1, default=str)

@@ -27,7 +27,8 @@ Blocks:
     from ``--model-dir``; one cold and ``--engine-repeats`` timed passes,
     per-pass medians with the raw ``per_pass_s``;
   * ``engine_ref_default``: the same warm engine at the reference's default
-    decode (temperature 0.1 → best_of 5 sampled replicas);
+    decode (temperature 0.1 → best_of 5 sampled replicas), after one more
+    untimed pass that captures its decode graphs;
   * ``latency``: one 60 s file through the warm engine, request by request;
   * ``engine_overlap``: the overlap path (RE-SepFormer separation and
     best-source choice) on 60 s of ``synth_conversation()`` tiled five
@@ -40,8 +41,12 @@ per step, recorded by ``ModelBundle.decode_timer`` on one more, untimed pass,
 since its spans end with a synchronize that the timed passes leave out; the
 hot path's ``stage_ms`` comes from that pass too), the peak device memory of
 its timed passes
-(``torch.cuda.max_memory_allocated``), the launches of K1 and K2 in them, and
-the top line carries the card's ``name, power.limit`` from ``nvidia-smi``.
+(``torch.cuda.max_memory_allocated``), the launches of K1 and K2 in them,
+the decode graphs' replays in the ``step_ms`` pass (``graph_replays``;
+models/decode_graph.py, on the card only) and, in the hot path, the graphs
+its warm-up call captured and their seconds (``graph_captures``,
+``capture_s``), and the top line carries the card's ``name, power.limit``
+from ``nvidia-smi``.
 
 ``_ensure_models`` writes the dress-rehearsal checkpoint set
 (``eval/dress_rehearsal.populate``: real dims, formats and layout, seeded
@@ -149,6 +154,18 @@ def _step_ms(timer) -> float | None:
     return timer.as_dict().get("token_loop", 0.0) / steps * 1e3
 
 
+def _graph_counts(timer, cold=None) -> dict:
+    """The decode graphs' replays in ``timer``'s calls and, with ``cold``
+    (the warm-up call's timer), the graphs it captured and their seconds:
+    the token loop's graphs are captured on a key's first call (on the
+    card; all 0 on the CPU)."""
+    out = {"graph_replays": timer.counts.get("graph_replays", 0)}
+    if cold is not None:
+        out.update(graph_captures=cold.counts.get("graph_captures", 0),
+                   capture_s=cold.as_dict().get("graph_capture", 0.0))
+    return out
+
+
 # ------------------------------------------------------------------ models
 
 def _ensure_models(model_dir: str, device, budget_s: float = float("inf")) -> str:
@@ -213,7 +230,8 @@ def bench_hot_path(args, device: torch.device) -> dict:
         return greedy_decode(model, mel, toks, lens, dims, opts, 1,
                              timer=timer)
 
-    pipeline()                                     # warm-up
+    warm = StageTimer()             # warm-up; captures the decode graph
+    pipeline(warm)
     _sync(device)
     block: dict = {}
     with _measured(device, block):
@@ -228,7 +246,7 @@ def bench_hot_path(args, device: torch.device) -> dict:
     block.update({"rtfx": rtfx, "batch": B, "iters": args.iters,
                   "decode_tokens": args.decode_tokens,
                   "kv_bits": args.kv_bits, "self_kv_bits": args.self_kv_bits,
-                  "step_ms": _step_ms(timer),
+                  "step_ms": _step_ms(timer), **_graph_counts(timer, warm),
                   "stage_ms": {k: v * 1e3 for k, v in timer.as_dict().items()
                                if k != "token_loop"}})
     return block
@@ -326,7 +344,8 @@ def _timed_passes(engine, paths, repeats, budget_s, pass_audio, device,
                   stages: bool = False):
     """``_run_passes`` with the kernel counters and the peak memory taken
     over the timed passes; then, budget allowing, one untimed pass with the
-    bundle's decode timer for ``step_ms``. → (the warm report, results)."""
+    bundle's decode timer for ``step_ms`` and the decode graphs' replays.
+    → (the warm report, results)."""
     from clearconverse_tpu_torch.utils.tracing import StageTimer
     block: dict = {}
     with _measured(device, block):
@@ -340,7 +359,7 @@ def _timed_passes(engine, paths, repeats, budget_s, pass_audio, device,
             engine.process_files(paths)
         finally:
             engine.models.decode_timer = None
-    out.update(step_ms=_step_ms(timer), **block)
+    out.update(step_ms=_step_ms(timer), **_graph_counts(timer), **block)
     return out, results
 
 
@@ -381,7 +400,6 @@ def bench_engine(args, device, budget_s: float, share: dict, tmp: str) -> dict:
     load_source = dict(engine.models.load_source)
     share.update(engine=engine, paths=paths, pass_audio=pass_audio)
     out.update({
-        "audio_seconds": pass_audio * out["warm_passes"],
         "files": len(paths),
         "segments_per_pass": sum(len(r["segments"]) for r in results if r),
         "wire": {k: v for k, v in engine.last_run_wire.items()
@@ -409,6 +427,7 @@ def bench_ref_default(engine, paths, pass_audio: float, budget_s: float,
     prev = engine.config.temperature
     engine.config.temperature = 0.1
     try:
+        engine.process_files(paths)   # captures the t > 0 decode graphs
         out, _ = _timed_passes(engine, paths, repeats, budget_s, pass_audio,
                                device)
         out["knobs"] = {"temperature": 0.1,
@@ -421,7 +440,7 @@ def bench_ref_default(engine, paths, pass_audio: float, budget_s: float,
 def bench_latency(engine, repeats: int, tiles: int, device, tmp: str) -> dict:
     """Wall clock from file path to finished transcript for ONE file
     through the warm engine, request by request: what one user waits."""
-    (path,), file_s = engine_wavs(tmp, 1, tiles)
+    (path,), _ = engine_wavs(tmp, 1, tiles)
     engine.process_files([path])                   # warm-up at B=1 shapes
     block: dict = {}
     laps = []
@@ -431,7 +450,7 @@ def bench_latency(engine, repeats: int, tiles: int, device, tmp: str) -> dict:
             engine.process_files([path])
             laps.append(time.perf_counter() - t0)
     return {"latency_best_s": min(laps), "latency_mean_s": sum(laps) / len(laps),
-            "audio_seconds": file_s, **block}
+            **block}
 
 
 def bench_overlap(args, device, budget_s: float, tmp: str) -> dict:

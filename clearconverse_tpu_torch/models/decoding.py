@@ -1,14 +1,19 @@
 """Batched KV-cached Whisper decoding in PyTorch.
 
 The JAX package's models/decoding.py decodes a whole segment batch in one
-XLA program. Here the same steps run eagerly on the device: pad/trim,
+XLA program whose token loop is a ``lax.while_loop``. Here pad/trim,
 log-mel (kernel K1 on CUDA), the encoder (kernel K2 on CUDA), head-major
-cross-KV, prompt prefill over left-padded prompts, then a Python loop over
-a fixed-shape step that advances every sequence one token and stops when
-all have emitted EOT. Checking that stop condition reads one flag back
-from the device each step. Variable-length prompts keep exact
-single-example numerics by giving real tokens their absolute positions and
-masking padded cache slots forever.
+cross-KV and prompt prefill run eagerly on the device; the token loop is
+one step function, ``_greedy_step``, the counterpart of the JAX loop's
+``body``: every field of its state is a device tensor, so a step never
+waits for the host. On a CUDA tensor (and a whole, unsharded model) the
+loop runs as CUDA graphs of ``decode_graph.K`` consecutive steps, replayed
+until a stop flag read a replay late says every row has emitted EOT
+(``models/decode_graph.py``); on the CPU, and on a model-sharded mesh rank,
+the same step runs eagerly and the host reads the stop flag after each
+step. Variable-length prompts keep exact single-example numerics by giving
+real tokens their absolute positions and masking padded cache slots
+forever.
 
 Prompt layout per row: [sot_prev, ...context_tokens..., sot, (notimestamps)],
 left-padded.
@@ -19,17 +24,21 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Tuple
+import logging
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from clearconverse_tpu_torch.models import decode_graph
 from clearconverse_tpu_torch.models.whisper import (
     Whisper, WhisperDims, decoder_forward, init_kv_cache, precompute_cross_kv,
     tensor_parallel, unpack_codes, whisper_encode,
 )
 from clearconverse_tpu_torch.utils.tracing import StageTimer
+
+logger = logging.getLogger(__name__)
 
 _NEG_INF = -1e9
 
@@ -91,34 +100,37 @@ def build_prompt_batch(prompt_lists, max_prompt_len: int, pad_id: int):
     return toks, lens
 
 
-@functools.lru_cache(maxsize=8)
-def _suppress_mask(ids: Tuple[int, ...], vocab: int,
+def _suppress_mask(opts: DecodeOptions, vocab: int,
                    device: torch.device) -> torch.Tensor:
-    mask = torch.zeros(vocab, dtype=torch.bool)
-    mask[list(ids)] = True
-    return mask.to(device)
-
-
-def _suppress(logits: torch.Tensor, opts: DecodeOptions,
-              is_first: bool) -> torch.Tensor:
-    """Whisper's suppression: the static id set at every step, plus blank
-    and EOT on the first sampled token."""
+    """[vocab] bool, True at ``opts.suppress_tokens``: built on the device
+    once per decode call, before the token loop."""
+    mask = torch.zeros(vocab, dtype=torch.bool, device=device)
     if opts.suppress_tokens:
-        mask = _suppress_mask(opts.suppress_tokens, logits.shape[-1],
-                              logits.device)
-        logits = logits.masked_fill(mask, _NEG_INF)
+        ids = torch.tensor(opts.suppress_tokens, dtype=torch.long)
+        mask[ids.to(device)] = True
+    return mask
+
+
+def _suppress(logits: torch.Tensor, opts: DecodeOptions, is_first: bool,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Whisper's suppression: the static id set at every step (``mask``,
+    from ``_suppress_mask``; built here when not given), plus blank and EOT
+    on the first sampled token."""
+    if mask is None:
+        mask = _suppress_mask(opts, logits.shape[-1], logits.device)
+    logits = logits.masked_fill(mask, _NEG_INF)
     if opts.suppress_blank and is_first:
-        logits = logits.clone()
         logits[..., [opts.blank_token, opts.eot]] = _NEG_INF
     return logits
 
 
 def _timestamp_rules(logits: torch.Tensor, opts: DecodeOptions,
                      is_first: bool, prev: torch.Tensor, prev2: torch.Tensor,
-                     last_ts: torch.Tensor, step: int) -> torch.Tensor:
+                     last_ts: torch.Tensor, step) -> torch.Tensor:
     """whisper ApplyTimestampRules on [B, V] f32 logits. ``prev``/``prev2``
     are the last two sampled tokens (-1 = none); ``last_ts`` is the latest
-    sampled timestamp token (-1 = none)."""
+    sampled timestamp token (-1 = none); ``step`` (an int or a 0-d device
+    tensor) is the index of the token being sampled."""
     tsb = opts.timestamp_begin
     idx = torch.arange(logits.shape[-1], device=logits.device)[None, :]
     ts_region = idx >= tsb
@@ -149,18 +161,22 @@ def _timestamp_rules(logits: torch.Tensor, opts: DecodeOptions,
 
 
 def _pick(logits: torch.Tensor, opts: DecodeOptions,
-          generator: Optional[torch.Generator]) -> torch.Tensor:
+          generator: Optional[torch.Generator],
+          temperature: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy argmax at t = 0; at t > 0 a categorical sample as
     argmax(logits / t + Gumbel noise), the noise drawn from ``generator``
-    (not the JAX package's random bits). ``opts.noise_rows`` draws the
-    noise of a larger batch and keeps this call's block of it."""
+    (not the JAX package's random bits). ``temperature``, a 0-d f32 device
+    tensor, carries t into the token loop, so one captured loop serves
+    every t > 0; without it t is ``opts.temperature``. ``opts.noise_rows``
+    draws the noise of a larger batch and keeps this call's block of it."""
     if opts.temperature > 0 and generator is not None:
         lo, total = opts.noise_rows
         shape = (total, logits.shape[-1]) if total else logits.shape
         u = torch.rand(shape, generator=generator, device=logits.device,
                        dtype=torch.float32)[lo:lo + logits.shape[0]]
         gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-        return torch.argmax(logits / opts.temperature + gumbel, dim=-1)
+        t = opts.temperature if temperature is None else temperature
+        return torch.argmax(logits / t + gumbel, dim=-1)
     return torch.argmax(logits, dim=-1)
 
 
@@ -245,11 +261,16 @@ def _widen_codes(ckv: Dict[str, Any], cdt: torch.dtype) -> Dict[str, Any]:
 
 
 def _prefill(model, mel, prompt_tokens, prompt_lens, dims, opts,
-             max_prompt_len, timer: Optional[StageTimer] = None):
+             max_prompt_len, timer: Optional[StageTimer] = None,
+             spare: int = 0,
+             bufs: Optional[decode_graph.GraphBuffers] = None):
     """Encode → cross-KV → prompt prefill. Returns (cross_kv, self_kv,
     prefill logits [B, P, V], pad [B, 1], max_len).
 
-    ``mel`` carries B // opts.replicas unique rows (see DecodeOptions)."""
+    ``mel`` carries B // opts.replicas unique rows (see DecodeOptions). The
+    self-KV cache holds max_len + ``spare`` slots. ``bufs`` (a decode
+    graph's buffers) supplies the cross-KV destinations and the zeroed
+    self-KV cache, so the captured loop finds them at fixed addresses."""
     B, P = prompt_tokens.shape
     max_len = max_prompt_len + opts.max_tokens
     cdt = opts.compute_dtype
@@ -262,10 +283,19 @@ def _prefill(model, mel, prompt_tokens, prompt_lens, dims, opts,
     with _span(timer, "encoder"):
         audio = whisper_encode(model, mel, dims, cdt)
     with _span(timer, "cross_kv"):
-        cross_kv = [_widen_codes(c, cdt) for c in precompute_cross_kv(
-            model, audio, n_head=dims.n_text_head, bits=opts.cross_kv_bits)]
-    self_kv = init_kv_cache(dims, B, max_len, cdt, bits=opts.self_kv_bits,
-                            device=dev, tp=tensor_parallel(model))
+        if bufs is None:
+            cross_kv = [_widen_codes(c, cdt) for c in precompute_cross_kv(
+                model, audio, n_head=dims.n_text_head, bits=opts.cross_kv_bits)]
+        else:
+            cross_kv = precompute_cross_kv(
+                model, audio, n_head=dims.n_text_head,
+                bits=opts.cross_kv_bits, out=bufs.cross_kv)
+    if bufs is None:
+        self_kv = init_kv_cache(dims, B, max_len + spare, cdt,
+                                bits=opts.self_kv_bits, device=dev,
+                                tp=tensor_parallel(model))
+    else:
+        self_kv = bufs.self_kv
 
     pad = (P - prompt_lens)[:, None]                      # [B,1]
     slot = torch.arange(P, device=dev)[None, :]
@@ -273,7 +303,7 @@ def _prefill(model, mel, prompt_tokens, prompt_lens, dims, opts,
 
     # Prefill mask: query q sees key k iff k <= q (causal) and k is a real
     # prompt slot. Cache slots >= P are unwritten → hidden.
-    kslot = torch.arange(max_len, device=dev)[None, None, None, :]
+    kslot = torch.arange(max_len + spare, device=dev)[None, None, None, :]
     qslot = torch.arange(P, device=dev)[None, None, :, None]
     causal = kslot <= qslot
     kvalid = (kslot >= pad[:, None, None, :]) & (kslot < P)
@@ -311,6 +341,177 @@ def _finalize_decode(tokens, slp, no_speech_prob, opts):
             "no_speech_prob": no_speech_prob, "packed": packed}
 
 
+@dataclasses.dataclass
+class _LoopState:
+    """The token loop's carry, the JAX ``while_loop`` state ``(step,
+    tokens, kv, finished, slp, prev, prev2, last_ts)``: every field a
+    device tensor, updated in place. ``ctl`` = [loop steps taken, stop]
+    (long) is what the host reads back."""
+
+    step: torch.Tensor        # 0-d long: the index of the token being sampled
+    tokens: torch.Tensor      # [B, max_tokens + K] long, EOT after the end
+    kv: List[Dict[str, torch.Tensor]]
+    finished: torch.Tensor    # [B] bool
+    slp: torch.Tensor         # [B] f32 sum of the sampled tokens' logprobs
+    prev: torch.Tensor        # [B] long: the last sampled token
+    prev2: torch.Tensor       # [B] long: the one before (-1 = none)
+    last_ts: torch.Tensor     # [B] long: the latest timestamp (-1 = none)
+    ctl: torch.Tensor         # [2] long
+
+
+@dataclasses.dataclass
+class _LoopInputs:
+    """What a step reads and never writes. The tensors are refilled by
+    every call of a captured loop; the rest is fixed by its graph key."""
+
+    model: Optional[Whisper]
+    dims: WhisperDims
+    opts: DecodeOptions
+    cross_kv: List[Dict[str, Any]]
+    P: int                     # prompt slots
+    kslot: torch.Tensor        # [1, 1, 1, M] cache slot index
+    prompt_lens: torch.Tensor  # [B] long
+    padded: torch.Tensor       # [B, 1, 1, M] bool: left-pad slots
+    suppress: torch.Tensor     # [V] bool (_suppress_mask)
+    temperature: torch.Tensor  # 0-d f32
+    generator: Optional[torch.Generator]
+
+
+def _loop_inputs(model, dims, opts, cross_kv, prompt_lens, pad, P: int,
+                 M: int, V: int, generator) -> _LoopInputs:
+    dev = prompt_lens.device
+    kslot = torch.arange(M, device=dev)[None, None, None, :]
+    return _LoopInputs(
+        model, dims, opts, cross_kv, P, kslot, prompt_lens,
+        kslot < pad[:, None, None, :], _suppress_mask(opts, V, dev),
+        torch.full((), float(opts.temperature), dtype=torch.float32,
+                   device=dev), generator)
+
+
+def _new_state(B: int, cols: int, kv, dev) -> _LoopState:
+    def e(*shape, dtype=torch.long):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    return _LoopState(e(), e(B, cols), kv, e(B, dtype=torch.bool),
+                      e(B, dtype=torch.float32), e(B), e(B), e(B), e(2))
+
+
+def _start_loop(s: _LoopState, c: _LoopInputs, last_logits: torch.Tensor,
+                opts: DecodeOptions) -> None:
+    """The first sampled token (from the prefill's last logits) and the
+    loop's initial state, written into ``s``."""
+    eot = opts.eot
+    first = _suppress(last_logits, opts, True, c.suppress)
+    none = torch.full_like(s.prev, -1)
+    if opts.timestamps:
+        first = _timestamp_rules(first, opts, True, none, none, none, 0)
+    logp0 = F.log_softmax(first, dim=-1)
+    tok0 = _pick(first, opts, c.generator, c.temperature)
+    s.step.fill_(1)
+    s.tokens.fill_(eot)
+    s.tokens[:, 0] = tok0
+    s.finished.copy_(tok0 == eot)
+    s.slp.copy_(logp0.gather(1, tok0[:, None])[:, 0])
+    s.prev.copy_(tok0)
+    s.prev2.copy_(none)
+    s.last_ts.copy_(torch.where(tok0 >= opts.timestamp_begin, tok0, none)
+                    if opts.timestamps else none)
+    s.ctl[0] = 0
+    s.ctl[1].copy_(s.finished.all() | (opts.max_tokens <= 1))
+
+
+def _greedy_step(s: _LoopState, c: _LoopInputs) -> None:
+    """One token for every row, in place: the JAX loop's ``body``. Reads
+    nothing from the host, so K of them capture into one CUDA graph.
+    Past the loop's end (the JAX ``cond`` false: every row finished, or
+    ``max_tokens`` reached) every row counts as done, so such a step writes
+    EOT, adds nothing to ``slp`` and leaves ``ctl`` as it was."""
+    opts, dims = c.opts, c.dims
+    step = s.step
+    live = ~s.finished.all() & (step < opts.max_tokens)
+    # prev = token generated at step-1; its absolute position is
+    # prompt_len + step - 1 and its K/V land in cache slot P + step - 1.
+    pos = torch.clamp(c.prompt_lens + step - 1, 0, dims.n_text_ctx - 1)
+    mask = torch.where(c.padded | (c.kslot > step + (c.P - 1)), _NEG_INF, 0.0)
+    logits, _ = decoder_forward(
+        c.model, s.prev[:, None], pos[:, None], step + (c.P - 1), s.kv,
+        c.cross_kv, mask, None, dims, opts.compute_dtype)
+    lg = _suppress(logits[:, 0, :], opts, False, c.suppress)
+    if opts.timestamps:
+        lg = _timestamp_rules(lg, opts, False, s.prev, s.prev2, s.last_ts,
+                              step)
+    logp = F.log_softmax(lg, dim=-1)
+    pick = _pick(lg, opts, c.generator, c.temperature)
+    # openai-whisper caps sample_len so prompt+generation <= n_text_ctx;
+    # rows whose prompt reaches the context end force-finish. A done row's
+    # logprob is read at its (valid) pick and dropped: EOT may be -1.
+    done = (s.finished | ((c.prompt_lens + step) >= dims.n_text_ctx)
+            | (step >= opts.max_tokens))
+    nxt = torch.where(done, opts.eot, pick)
+    s.slp.add_(torch.where(done, 0.0, logp.gather(1, pick[:, None])[:, 0]))
+    s.tokens.index_copy_(1, step.reshape(1), nxt[:, None])
+    if opts.timestamps:
+        s.last_ts.copy_(torch.where((nxt >= opts.timestamp_begin) & ~done,
+                                    nxt, s.last_ts))
+    s.finished.copy_(done | (nxt == opts.eot))
+    s.prev2.copy_(s.prev)
+    s.prev.copy_(nxt)
+    s.ctl[0].add_(live.long())
+    step.add_(1)
+    s.ctl[1].copy_(s.finished.all() | (step >= opts.max_tokens))
+
+
+def _greedy_steps(s: _LoopState, c: _LoopInputs) -> None:
+    """``decode_graph.K`` steps: what one decode graph captures."""
+    for _ in range(decode_graph.K):
+        _greedy_step(s, c)
+
+
+def _loop_eager(s: _LoopState, c: _LoopInputs) -> int:
+    """The token loop one step at a time, the host reading the stop flag
+    after each. Returns the loop steps taken."""
+    while not bool(s.ctl[1]):
+        _greedy_step(s, c)
+    return int(s.ctl[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _log_eager_route() -> None:
+    logger.info("decode: a model-sharded rank runs the token loop eagerly "
+                "(its step holds collectives, which CUDA graphs do not "
+                "capture over gloo)")
+
+
+def _graph_route(model: Whisper, device: torch.device) -> bool:
+    """True when the token loop runs as CUDA graphs: every CUDA call on a
+    whole model (1×1 and data-only meshes). A model-sharded rank keeps the
+    eager step, logged once."""
+    if device.type != "cuda":
+        return False
+    if tensor_parallel(model) is not None:
+        _log_eager_route()
+        return False
+    return True
+
+
+def _graph_buffers(graphs: decode_graph.DecodeGraphs, model, mel, B: int,
+                   P: int, max_len: int, dims: WhisperDims,
+                   opts: DecodeOptions, sampling: bool):
+    """The decode graph buffers of this call's static key: the JAX jit's
+    (rows, encoder frames, prompt slots, max_len, options), with only
+    "t > 0" of the temperature and no suppression set (both are device
+    inputs of the graph)."""
+    key = (B, mel.shape[0], mel.shape[-1], P, max_len, sampling,
+           dataclasses.replace(opts, temperature=float(opts.temperature > 0),
+                               suppress_tokens=()))
+    layout = decode_graph.Layout(
+        dims.n_text_layer, dims.n_text_head, dims.head_dim,
+        opts.compute_dtype, opts.cross_kv_bits != 16, opts.self_kv_bits)
+    frames = (mel.shape[-1] - 1) // 2 + 1        # conv2: stride 2, pad 1
+    return graphs.buffers(key, layout, mel.shape[0], B, frames,
+                          max_len + decode_graph.K,
+                          decode_graph.weights_key(model), sampling)
+
+
 @torch.inference_mode()
 def greedy_decode(
     model: Whisper,
@@ -329,72 +530,71 @@ def greedy_decode(
     ``no_speech_prob`` is zeros unless opts.no_speech_token is set;
     ``steps`` (a host int) counts the token positions decoded. ``timer``,
     when given, records the stages' spans (gather, log_mel, encoder,
-    cross_kv, prefill, token_loop) and counts the loop's steps
-    (``token_loop_steps``)."""
+    cross_kv, prefill, token_loop; graph_capture inside token_loop when a
+    graph is captured) and counts the loop's steps (``token_loop_steps``)
+    and, on the graph route, its replays, captures and stop-flag reads.
+
+    On a CUDA tensor and a whole model the token loop runs as CUDA graphs
+    (``_graph_route``, models/decode_graph.py); at t > 0 their generator is
+    reseeded from ``generator.initial_seed()``, and ``generator`` itself is
+    not advanced."""
     prompt_tokens = prompt_tokens.long()
     prompt_lens = prompt_lens.long()
     B, P = prompt_tokens.shape
+    if P > max_prompt_len:
+        raise ValueError(f"prompt slots ({P}) exceed max_prompt_len "
+                         f"({max_prompt_len})")
     dev = mel.device
-    eot = opts.eot
-    cross_kv, self_kv, logits, pad, max_len = _prefill(
-        model, mel, prompt_tokens, prompt_lens, dims, opts, max_prompt_len,
-        timer)
-    no_speech_prob = _no_speech_from_prefill(logits, opts, P)
+    mt = opts.max_tokens
+    graphs = decode_graph.graphs_for(model) if _graph_route(model, dev) \
+        else None
+    with graphs.lock if graphs is not None else contextlib.nullcontext():
+        bufs = None
+        sampling = opts.temperature > 0 and generator is not None
+        if graphs is not None:
+            bufs = _graph_buffers(graphs, model, mel, B, P,
+                                  max_prompt_len + mt, dims, opts, sampling)
+        cross_kv, self_kv, logits, pad, max_len = _prefill(
+            model, mel, prompt_tokens, prompt_lens, dims, opts,
+            max_prompt_len, timer, spare=decode_graph.K, bufs=bufs)
+        no_speech_prob = _no_speech_from_prefill(logits, opts, P)
 
-    with _span(timer, "token_loop"):
-        first = _suppress(logits[:, -1, :], opts, True)
-        none = torch.full((B,), -1, dtype=torch.long, device=dev)
-        if opts.timestamps:
-            first = _timestamp_rules(first, opts, True, none, none, none, 0)
-        logp0 = F.log_softmax(first, dim=-1)
-        tok0 = _pick(first, opts, generator)
-
-        tokens = torch.full((B, opts.max_tokens), eot, dtype=torch.long,
-                            device=dev)
-        tokens[:, 0] = tok0
-        finished = tok0 == eot
-        slp = logp0.gather(1, tok0[:, None])[:, 0]
-        prev, prev2 = tok0, none
-        last_ts = (torch.where(tok0 >= opts.timestamp_begin, tok0, none)
-                   if opts.timestamps else none)
-        kslot = torch.arange(max_len, device=dev)[None, None, None, :]
-        padded = kslot < pad[:, None, None, :]            # [B,1,1,max_len]
-
-        step = 1
-        while step < opts.max_tokens and not bool(finished.all()):
-            # prev = token generated at step-1; its absolute position is
-            # prompt_len + step - 1 and its K/V land in cache slot
-            # P + step - 1.
-            pos = torch.clamp(prompt_lens + step - 1, 0, dims.n_text_ctx - 1)
-            mask = torch.where(padded | (kslot > P - 1 + step), _NEG_INF, 0.0)
-            logits, self_kv = decoder_forward(
-                model, prev[:, None], pos[:, None], P + step - 1, self_kv,
-                cross_kv, mask.float(), None, dims, opts.compute_dtype)
-            lg = _suppress(logits[:, 0, :], opts, False)
-            if opts.timestamps:
-                lg = _timestamp_rules(lg, opts, False, prev, prev2, last_ts,
-                                      step)
-            logp = F.log_softmax(lg, dim=-1)
-            nxt = _pick(lg, opts, generator)
-            # openai-whisper caps sample_len so prompt+generation <=
-            # n_text_ctx; rows whose prompt reaches the context end
-            # force-finish.
-            done = finished | ((prompt_lens + step) >= dims.n_text_ctx)
-            nxt = torch.where(done, eot, nxt)
-            slp = slp + torch.where(done, 0.0,
-                                    logp.gather(1, nxt[:, None])[:, 0])
-            tokens[:, step] = nxt
-            finished = done | (nxt == eot)
-            if opts.timestamps:
-                last_ts = torch.where((nxt >= opts.timestamp_begin) & ~done,
-                                      nxt, last_ts)
-            prev, prev2 = nxt, prev
-            step += 1
+        with _span(timer, "token_loop"):
+            gen = generator
+            if bufs is not None and bufs.generator is not None:
+                gen = bufs.generator
+                gen.manual_seed(generator.initial_seed())
+            c = _loop_inputs(model, dims, opts, cross_kv, prompt_lens, pad,
+                             P, max_len + decode_graph.K, logits.shape[-1],
+                             gen)
+            if bufs is None:
+                s = _new_state(B, mt + decode_graph.K, self_kv, dev)
+            else:
+                if bufs.state is None:
+                    bufs.state = _new_state(B, mt + decode_graph.K,
+                                            self_kv, dev)
+                    # The graph's inputs hold no model: the graphs are
+                    # dropped with the model, so they must not keep it.
+                    bufs.inputs = dataclasses.replace(c, model=None)
+                else:
+                    for name in ("prompt_lens", "padded", "suppress",
+                                 "temperature"):
+                        getattr(bufs.inputs, name).copy_(getattr(c, name))
+                s = bufs.state
+                c = dataclasses.replace(bufs.inputs, model=model, opts=opts)
+            _start_loop(s, c, logits[:, -1, :], opts)
+            if bufs is None:
+                loop_steps = _loop_eager(s, c)
+            else:
+                loop_steps = graphs.run(
+                    bufs, functools.partial(_greedy_steps, s, c), s.ctl,
+                    -(-(mt - 1) // decode_graph.K), timer) if mt > 1 else 0
+            tokens, slp = s.tokens[:, :mt].clone(), s.slp.clone()
 
     if timer is not None:
-        timer.count("token_loop_steps", step - 1)
+        timer.count("token_loop_steps", loop_steps)
     out = _finalize_decode(tokens, slp, no_speech_prob, opts)
-    out["steps"] = step      # loop steps taken = host syncs on the stop flag
+    out["steps"] = loop_steps + 1    # token positions decoded
     return out
 
 
@@ -448,7 +648,8 @@ def beam_decode(
     neg_inf = float("-inf")
 
     with _span(timer, "token_loop"):
-        first = _suppress(logits[:, -1, :], opts, True)
+        smask = _suppress_mask(opts, V, dev)
+        first = _suppress(logits[:, -1, :], opts, True, smask)
         none = torch.full((B,), -1, dtype=torch.long, device=dev)
         if opts.timestamps:
             first = _timestamp_rules(first, opts, True, none, none, none, 0)
@@ -501,7 +702,7 @@ def beam_decode(
             logits, kv = decoder_forward(
                 model, prev[:, None], pos[:, None], P + step - 1, kv,
                 cross_kv, mask.float(), None, dims, opts.compute_dtype)
-            lg = _suppress(logits[:, 0, :], opts, False)
+            lg = _suppress(logits[:, 0, :], opts, False, smask)
             if opts.timestamps:
                 lg = _timestamp_rules(lg, opts, False, prev, prev2, last_ts,
                                       step)

@@ -288,34 +288,59 @@ def whisper_encode(model: Whisper, mel: torch.Tensor, dims: WhisperDims,
 # ------------------------------------------------------------------ decoder
 
 def precompute_cross_kv(model: Whisper, audio: torch.Tensor, n_head: int,
-                        bits: int = 16) -> List[Dict[str, Any]]:
+                        bits: int = 16, out: Optional[List[Dict[str, Any]]] = None
+                        ) -> List[Dict[str, Any]]:
     """Per-layer cross-attention K/V from the encoder output, computed once
     per segment and re-read every decode step, in the head-major decode
     layout: K [B, H, dh, T], V [B, H, T, dh]. ``bits`` is 16, 8 or 4: 8 and
     4 store integer codes with per-channel f32 scales (amax over T); int4
     codes are packed two a byte along the last axis (``_quant_kv``).
     ``n_head`` is the model's; a tensor-parallel shard keeps its local
-    heads."""
+    heads.
+
+    ``out``, when given, holds one destination per layer in the widened
+    decode layout (``{"kt", "vt"}`` at 16 bits, ``{"k8t": {"q", "scale"},
+    "v8t": ...}`` with the codes in the compute dtype at 8 and 4 bits):
+    each layer is written into it with ``copy_`` as it is computed, so no
+    second copy of the whole cross-KV is held, and ``out`` is returned."""
     if bits not in (16, 8, 4):
         raise ValueError(f"cross-KV width must be 16, 8 or 4, got {bits}")
-    return [_head_major_kv_direct(audio, blk.cross, n_head, bits,
-                                  tensor_parallel(model))
-            for blk in model.decoder.blocks]
+    tp = tensor_parallel(model)
+    if out is None:
+        return [_head_major_kv_direct(audio, blk.cross, n_head, bits, tp)
+                for blk in model.decoder.blocks]
+    for blk, dst in zip(model.decoder.blocks, out):
+        _head_major_kv_direct(audio, blk.cross, n_head, bits, tp, dst)
+    return out
 
 
 def _head_major_kv_direct(audio: torch.Tensor, cross: _Attention,
-                          n_head: int, bits: int, tp=None) -> Dict[str, Any]:
-    """Project K/V and lay them out head-major: [B,H,dh,T] / [B,H,T,dh]."""
+                          n_head: int, bits: int, tp=None,
+                          out: Optional[Dict[str, Any]] = None
+                          ) -> Dict[str, Any]:
+    """Project K/V and lay them out head-major: [B,H,dh,T] / [B,H,T,dh];
+    with ``out``, write them (widened codes and scales when quantized) into
+    that layer destination instead (see ``precompute_cross_kv``)."""
     B, T, D = audio.shape
     dh = D // n_head
     heads = n_head if tp is None else tp.heads(n_head)
     k, v = _column(audio, [cross.k, cross.v], tp, n_head)
     kt = k.view(B, T, heads, dh).permute(0, 2, 3, 1)
     vt = v.view(B, T, heads, dh).permute(0, 2, 1, 3)
+    if out is not None and bits == 16:
+        out["kt"].copy_(kt)
+        out["vt"].copy_(vt)
+        return out
     kt, vt = kt.contiguous(), vt.contiguous()
     if bits in (8, 4):
-        return {"k8t": _quant_kv(kt, bits, axis=-1),
-                "v8t": _quant_kv(vt, bits, axis=-2)}
+        res = {"k8t": _quant_kv(kt, bits, axis=-1),
+               "v8t": _quant_kv(vt, bits, axis=-2)}
+        if out is not None:
+            for name in ("k8t", "v8t"):
+                out[name]["q"].copy_(unpack_codes(res[name]))
+                out[name]["scale"].copy_(res[name]["scale"])
+            return out
+        return res
     return {"kt": kt, "vt": vt}
 
 
@@ -446,7 +471,7 @@ def decoder_forward(
     model: Whisper,
     tokens: torch.Tensor,            # [B, T] token ids
     positions: torch.Tensor,         # [B, T] absolute positions
-    cache_index: int,                # write offset into the KV cache
+    cache_index,                     # write offset into the KV cache
     self_kv: List[Dict[str, torch.Tensor]],   # running cache (init_kv_cache)
     cross_kv: List[Dict[str, Any]],           # precompute_cross_kv
     self_mask: torch.Tensor,         # [B, 1, T, max_len] additive f32
@@ -457,10 +482,14 @@ def decoder_forward(
     """One decoder pass over T tokens (prefill: T=prompt len; step: T=1).
 
     Returns (logits [B, T, vocab] f32, self_kv). The cache is updated IN
-    PLACE at ``cache_index`` (the JAX version returns an updated copy);
-    ``self_mask`` must hide future/invalid cache slots. A tensor-parallel
-    shard attends with its local heads (its caches come from
-    ``init_kv_cache(tp=...)`` and ``precompute_cross_kv``)."""
+    PLACE at ``cache_index`` (the JAX version returns an updated copy): a
+    Python int writes a slice (prefill), a 0-d device tensor writes with
+    ``index_copy_`` on the slot axis, so a step reads its offset from the
+    device and never from the host (the captured token loop,
+    ``models/decode_graph.py``). ``self_mask`` must hide future/invalid
+    cache slots. A tensor-parallel shard attends with its local heads (its
+    caches come from ``init_kv_cache(tp=...)`` and
+    ``precompute_cross_kv``)."""
     dec = model.decoder
     cdt = compute_dtype
     tp = tensor_parallel(model)
@@ -469,30 +498,41 @@ def decoder_forward(
     dh = dims.n_text_state // n_head
     H = n_head if tp is None else tp.heads(n_head)
 
+    T_ = tokens.shape[1]
+    if isinstance(cache_index, torch.Tensor):
+        slots = cache_index.reshape(1) + torch.arange(T_, device=x.device)
+
+        def write(buf, dim, val):
+            buf.index_copy_(dim, slots, val.to(buf.dtype))
+    else:
+        sl = slice(cache_index, cache_index + T_)
+
+        def write(buf, dim, val):
+            buf[(slice(None),) * dim + (sl,)] = val.to(buf.dtype)
+
     for blk, skv, ckv in zip(dec.blocks, self_kv, cross_kv):
         h = layer_norm(x, blk.attn_ln)
         q, k_new, v_new = _column(h, [blk.attn.q, blk.attn.k, blk.attn.v],
                                   tp, n_head)
-        B_, T_, D_ = q.shape
+        B_, _, D_ = q.shape
         kn = k_new.view(B_, T_, H, dh).permute(0, 2, 3, 1)   # [B,H,dh,T]
         vn = v_new.view(B_, T_, H, dh).permute(0, 2, 1, 3)   # [B,H,T,dh]
         qh = q.view(B_, T_, H, dh).transpose(1, 2) * dh ** -0.5
-        sl = slice(cache_index, cache_index + T_)
         if "kq" in skv:
             kq_n, ks_n = _quant_rows(kn, dim=2)
             vq_n, vs_n = _quant_rows(vn, dim=3)
-            skv["kq"][..., sl] = kq_n
-            skv["ks"][..., sl] = ks_n
-            skv["vq"][:, :, sl] = vq_n
-            skv["vs"][:, :, sl] = vs_n
+            write(skv["kq"], 3, kq_n)
+            write(skv["ks"], 3, ks_n)
+            write(skv["vq"], 2, vq_n)
+            write(skv["vs"], 2, vs_n)
             logits = torch.matmul(qh, skv["kq"].to(cdt)).float()
             logits = logits * skv["ks"] + self_mask
             w = torch.softmax(logits, dim=-1)
             w = (w * skv["vs"].transpose(-1, -2)).to(cdt)
             o = torch.matmul(w, skv["vq"].to(cdt))
         elif "kt" in skv:
-            skv["kt"][..., sl] = kn.to(skv["kt"].dtype)
-            skv["vt"][:, :, sl] = vn.to(skv["vt"].dtype)
+            write(skv["kt"], 3, kn)
+            write(skv["vt"], 2, vn)
             logits = torch.matmul(qh, skv["kt"].to(cdt)).float() + self_mask
             w = torch.softmax(logits, dim=-1).to(cdt)
             o = torch.matmul(w, skv["vt"].to(cdt))

@@ -203,8 +203,10 @@ class ModelBundle:
         # compute method probes it before it starts device work.
         self.should_cancel: Optional[Callable[[], bool]] = None
         # Per-call sampling seed: fallback rungs draw fresh randomness on
-        # every decode.
+        # every decode. One generator, reseeded on every sampling call; on
+        # the card the decode graphs reseed their own from its seed.
         self._decode_seed = 0
+        self._decode_gen: Optional[torch.Generator] = None
         # Wall-clock spans of the transcribe calls ("decode_dev" = device
         # program incl. the result copy). Totals only: the bundle lives as
         # long as the server.
@@ -666,8 +668,9 @@ class ModelBundle:
             gen = None
             if temp > 0:
                 self._decode_seed += 1
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(self._decode_seed)
+                if self._decode_gen is None:
+                    self._decode_gen = torch.Generator(device=self.device)
+                gen = self._decode_gen.manual_seed(self._decode_seed)
             with self._stage_timer.stage("decode_dev"):
                 if isinstance(audio_rows, StoreBatch):
                     out = dec.greedy_decode_from_store(

@@ -1,12 +1,15 @@
 """Warm-up for serving deployments of the port.
 
-PyTorch runs eagerly, so nothing is compiled per shape; what a cold server
-pays on its first requests is the kernels' ``nvcc`` builds (K1, K2), the
-native wire packer's ``g++`` build, cuBLAS and cuDNN handle creation and
-algorithm choice for each new shape, and the caching allocator growing its
-pools. This CLI drives the real engine (the factory the serve app uses)
-over synthetic conversations, then every decode row bucket, so those costs
-land before traffic:
+What a cold server pays on its first requests is the kernels' ``nvcc``
+builds (K1, K2), the native wire packer's ``g++`` build, cuBLAS and cuDNN
+handle creation and algorithm choice for each new shape, the caching
+allocator growing its pools, and, on the card, the capture of the decode
+token loop's CUDA graph for every static key (models/decode_graph.py: one
+graph per row bucket × encoder window × prompt bucket × options, the
+counterpart of the JAX package's warm-up compiling its decode programs).
+This CLI drives the real engine (the factory the serve app uses) over
+synthetic conversations, then every decode row bucket, so those costs land
+before traffic:
 
     python -m clearconverse_tpu_torch.serve.warmup --durations 30,60 --files 1,8
 
@@ -17,9 +20,9 @@ Two drive kinds:
     produces;
   * decode shapes — ``warm_decode_shapes``: transcribe_long_batch and
     transcribe_batch at every power-of-two row bucket × duration bucket,
-    store-backed and from host arrays.
-Capturing the token loop in CUDA graphs per row bucket would make this the
-place to record them; that is later work (ROADMAP).
+    store-backed and from host arrays. On the card each drive captures the
+    decode graph of its key; the largest bucket goes first, so the graphs'
+    shared arena is sized once and no later drive replaces it.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ def warmup_conversation(duration_s: int, sr: int) -> np.ndarray:
 
 
 def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
-                       durations=(5.0, 10.0, 30.0)) -> None:
+                       durations=(5.0, 10.0, 30.0)) -> Optional[dict]:
     """Drive the decode at every row bucket, in the variants production
     dispatches, through the deployment's own config.
 
@@ -75,7 +78,10 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
     windows), and transcribe_batch at every row bucket × duration bucket,
     store-backed (diarized segments of the original audio) and from host
     arrays (separated overlap clips), plus p64 prompts at the row
-    extremes. A bundle that is not the port's ModelBundle (the dev
+    extremes, each from the largest down (the first drive sizes the decode
+    graphs' arena). Returns the decode graphs' counts on the card
+    (captures, capture_s, replays, ..., ``graphs``, ``arena_gb``), None
+    elsewhere. A bundle that is not the port's ModelBundle (the dev
     backend) is skipped."""
     from clearconverse_tpu_torch.pipeline.bundle import (
         ModelBundle, StoreBatch, _row_bucket)
@@ -83,18 +89,19 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
 
     bundle = getattr(engine, "models", None)
     if not isinstance(bundle, ModelBundle):
-        return
+        return None
 
     temp = engine.config.temperature
     cap = _row_bucket(max(int(engine.config.transcription_batch_size), 1))
     row_buckets = []
-    r = 1
-    while r <= cap:
+    r = cap
+    while r >= 1:
         row_buckets.append(r)
-        r *= 2
+        r //= 2
     cfg_durs = getattr(getattr(engine, "torch_config", None),
                        "duration_buckets", None)
-    durations = tuple(cfg_durs) if cfg_durs else tuple(durations)
+    durations = tuple(sorted(cfg_durs if cfg_durs else durations,
+                             reverse=True))
     rng = np.random.default_rng(0)
 
     def store_rows(n: int, dur_samples: int) -> StoreBatch:
@@ -107,8 +114,8 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
 
     # Prompt lengths land in every prompt bucket (bundle._prompt_batch:
     # 4/16/64/256) under both the GPT-2 BPE and the byte tokenizer.
-    prompts = {"p4": "", "p16": "ctx " * 3, "p64": "ctx " * 9,
-               "p256": "ctx " * 100}
+    prompts = {"p256": "ctx " * 100, "p64": "ctx " * 9, "p16": "ctx " * 3,
+               "p4": ""}
     for n in row_buckets:
         sb = store_rows(n, 30 * SR)
         lens = np.full(n, 30 * SR)
@@ -129,11 +136,17 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
                   lambda a=audio, k=n:
                   bundle.transcribe_batch(a, [""] * k, temperature=temp))
     for n in (row_buckets[0], row_buckets[-1]):
-        sb = store_rows(n, int(durations[-1]) * SR)
+        sb = store_rows(n, int(durations[0]) * SR)
         drive(f"decode short store rows={n} prompt=p64",
               lambda sb=sb, k=n:
               bundle.transcribe_batch(sb, [prompts["p64"]] * k,
                                       temperature=temp))
+    if bundle.device.type != "cuda" or bundle._whisper is None:
+        return None
+    from clearconverse_tpu_torch.models.decode_graph import graphs_for
+    graphs = graphs_for(bundle._whisper[0])
+    return dict(graphs.stats, graphs=graphs.graphs,
+                arena_gb=graphs.arena_bytes / 1e9)
 
 
 def run_warmup(durations=(30, 60), file_counts=(1, 8),
@@ -179,7 +192,9 @@ def run_warmup(durations=(30, 60), file_counts=(1, 8),
                 drive(f"engine files={k} duration={dur}s",
                       lambda paths=paths: engine_pass(paths))
     if decode_shapes:
-        warm_decode_shapes(engine, drive)
+        graphs = warm_decode_shapes(engine, drive)
+        if graphs is not None:
+            log(f"  decode graphs: {graphs}")
     return entries
 
 

@@ -1,16 +1,21 @@
-"""Per-stage wall-clock spans.
+"""Per-stage wall-clock spans and device traces.
 
 ``StageTimer`` is the JAX package's span recorder; ``force_sync`` is the
-barrier a timed span ends with on a CUDA card.
+barrier a timed span ends with on a CUDA card; ``device_trace`` is the JAX
+package's trace context manager over ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 def force_sync() -> None:
@@ -69,3 +74,28 @@ class StageTimer:
         total = sum(dt for _, dt in items)
         parts = [f"{name}={dt:.2f}s" for name, dt in items]
         return f"total={total:.2f}s " + " ".join(parts)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str] = None):
+    """``torch.profiler`` over the block (the CPU, and the card when there
+    is one), written to ``log_dir`` as a Chrome trace
+    (``trace_<pid>_<ms>.json``, which Perfetto and chrome://tracing open);
+    yields the profiler. A no-op that yields None when ``log_dir`` is
+    None or empty. A trace of a whole decode call on the card is large
+    (tens of MB)."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_"
+                                 f"{int(time.time() * 1e3)}.json")
+    prof.export_chrome_trace(path)
+    logger.info("device trace written to %s", path)

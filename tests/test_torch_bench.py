@@ -29,7 +29,8 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ENGINE_BLOCK_KEYS = {"rtfx_warm_best", "rtfx_warm_mean", "warm_passes",
-                     "per_pass_s", "step_ms", "launches", "peak_mem_gb"}
+                     "per_pass_s", "step_ms", "graph_replays", "launches",
+                     "peak_mem_gb"}
 
 
 @pytest.fixture(autouse=True)
@@ -58,11 +59,16 @@ def test_bench_lines_on_a_tiny_rehearsal_set(tmp_path, capsys):
     assert hot["kv_bits"] == 8 and hot["step_ms"] > 0
     assert set(hot["stage_ms"]) >= {"log_mel", "encoder", "cross_kv",
                                     "prefill"}
-    # Kernels launch only on the card; the CPU runs their plain versions.
+    # Kernels launch only on the card; the CPU runs their plain versions,
+    # and the token loop eagerly (no decode graph).
     assert hot["launches"] == {"k1": 0, "k2": 0}
+    assert {k: hot[k] for k in ("graph_replays", "graph_captures",
+                                "capture_s")} == {
+        "graph_replays": 0, "graph_captures": 0, "capture_s": 0.0}
     for key in ("engine", "engine_ref_default", "engine_overlap"):
         assert ENGINE_BLOCK_KEYS <= set(last[key]), (key, last[key])
         assert last[key]["rtfx_warm_best"] > 0
+        assert last[key]["graph_replays"] == 0
     knobs = last["engine"]["knobs"]
     assert knobs["random_weights"] is False
     assert set(knobs["load_source"].values()) == {"checkpoint",

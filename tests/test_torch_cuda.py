@@ -588,3 +588,176 @@ def test_two_mesh_ranks_share_the_card(cuda):
     for mesh, (texts, counts) in got.items():
         assert texts == want, mesh
         assert all(k1n > 0 and k2n > 0 for k1n, k2n in counts), (mesh, counts)
+
+
+# ------------------------------------------- the token loop as CUDA graphs
+
+def _graph_model(dtype=torch.float32, seed=6):
+    """A 2-layer Whisper with 64-wide heads (K2 runs) on the card."""
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.whisper import WhisperDims
+
+    dims = WhisperDims(n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+                       n_text_state=128, n_text_head=2, n_text_layer=2)
+    return init_whisper(dims, seed=seed, device="cuda", dtype=dtype), dims
+
+
+def _graph_call(model, dims, rows, seed, eager=False, monkeypatch=None,
+                generator=None, **opt_kw):
+    """greedy_decode_from_audio on ``rows`` rows of seeded noise with the
+    graph route, or with the eager loop when ``eager``."""
+    from clearconverse_tpu_torch.models import decoding
+
+    timestamps = opt_kw.get("timestamps", False)
+    tail = [50257] if timestamps else [50257, 50362]
+    lists = [[50360, 11, 22] + tail, tail, [50360, 7] + tail]
+    toks, lens = decoding.build_prompt_batch(
+        [lists[i % 3] for i in range(rows * opt_kw.get("replicas", 1))],
+        8, 50256)
+    kw = dict(max_tokens=20, no_speech_token=50361,
+              sot_from_end=1 if timestamps else 2,
+              suppress_tokens=tuple(range(50257, 50363 if timestamps
+                                          else 51864)))
+    if timestamps:
+        kw["timestamp_begin"] = 50363
+    kw.update(opt_kw)
+    opts = decoding.DecodeOptions(**kw)
+    audio = _randn((rows, 24000), seed, 0.1).cuda()
+    args = (model, audio, torch.from_numpy(toks).cuda(),
+            torch.from_numpy(lens).cuda(), dims, opts, 8, generator)
+    if eager:
+        with monkeypatch.context() as m:
+            m.setattr(decoding, "_graph_route", lambda model, dev: False)
+            return decoding.greedy_decode_from_audio(*args, target_len=32000)
+    return decoding.greedy_decode_from_audio(*args, target_len=32000)
+
+
+def _same_decode(a, b):
+    assert torch.equal(a["tokens"], b["tokens"])
+    assert torch.equal(a["packed"], b["packed"])
+    assert a["steps"] == b["steps"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_graph_matches_eager_on_card(cuda, monkeypatch, dtype):
+    """t=0, timestamps on: the graph route gives the eager loop's tokens,
+    packed result and step count exactly; it replays, and it reads the stop
+    flag at most ceil(steps / K) + 1 times."""
+    from clearconverse_tpu_torch.models import decode_graph
+
+    model, dims = _graph_model(dtype)
+    graphs = decode_graph.graphs_for(model)
+    eager = _graph_call(model, dims, 3, 7, eager=True,
+                        monkeypatch=monkeypatch, timestamps=True,
+                        compute_dtype=dtype)
+    before = dict(graphs.stats)
+    graph = _graph_call(model, dims, 3, 7, timestamps=True,
+                        compute_dtype=dtype)
+    _same_decode(graph, eager)
+    assert graphs.stats["captures"] == before["captures"] + 1
+    reads = graphs.stats["flag_reads"] - before["flag_reads"]
+    assert reads <= -(-graph["steps"] // decode_graph.K) + 1
+    if graph["steps"] > 2 * decode_graph.K:
+        assert graphs.stats["replays"] > before["replays"]
+
+
+def test_decode_graph_replays_new_audio_without_recapture(cuda, monkeypatch):
+    """A second call of the same bucket with other audio replays the
+    captured graph (no capture) and gives the eager result for that audio;
+    an int8 self-KV cache and int4 cross-KV go through the same arena."""
+    from clearconverse_tpu_torch.models import decode_graph
+
+    model, dims = _graph_model()
+    graphs = decode_graph.graphs_for(model)
+    kw = dict(self_kv_bits=8, cross_kv_bits=4, eot=-1)
+    _graph_call(model, dims, 4, 8, **kw)
+    before = dict(graphs.stats)
+    graph = _graph_call(model, dims, 4, 9, **kw)
+    assert graphs.stats["captures"] == before["captures"]
+    assert graphs.stats["replays"] - before["replays"] == \
+        -(-(20 - 1) // decode_graph.K)      # eot=-1: every step runs
+    _same_decode(graph, _graph_call(model, dims, 4, 9, eager=True,
+                                    monkeypatch=monkeypatch, **kw))
+
+
+def test_two_row_buckets_share_the_arena(cuda, monkeypatch):
+    """Buckets of 4 and 2 rows, largest first, replayed in turns: two
+    captures, one arena, and every call equals the eager loop; the model
+    is freed once its caller drops it (its graphs hold no reference)."""
+    from clearconverse_tpu_torch.models import decode_graph
+
+    model, dims = _graph_model()
+    graphs = decode_graph.graphs_for(model)
+    seeds = iter(range(20, 40))
+    for rows in (4, 2, 4, 2, 4):
+        seed = next(seeds)
+        _same_decode(_graph_call(model, dims, rows, seed),
+                     _graph_call(model, dims, rows, seed, eager=True,
+                                 monkeypatch=monkeypatch))
+    assert graphs.stats["captures"] == 2 and graphs.graphs == 2
+    assert graphs.stats["arena_allocs"] == 1
+    assert graphs.stats["replays"] > 0
+    # The graphs and their arena are dropped with the model.
+    import gc
+    import weakref
+    alive = weakref.ref(model)
+    del model, graphs
+    gc.collect()
+    assert alive() is None
+
+
+def test_decode_graph_sampling_is_seeded(cuda, monkeypatch):
+    """t=0.1 with best_of 5 replicas: the same seed gives the same tokens
+    on the graph route, another seed other tokens; whether they equal the
+    eager loop's (the same Philox stream) is reported, not required."""
+    model, dims = _graph_model()
+
+    def run(seed, eager=False, temperature=0.1):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return _graph_call(model, dims, 2, 11, eager=eager,
+                           monkeypatch=monkeypatch, generator=gen,
+                           temperature=temperature, replicas=5)
+
+    a = run(3)
+    _same_decode(a, run(3))
+    # At t=1 the noise decides: other seeds give other tokens.
+    assert torch.equal(run(3, temperature=1.0)["tokens"],
+                       run(3, temperature=1.0)["tokens"])
+    assert not torch.equal(run(3, temperature=1.0)["tokens"],
+                           run(4, temperature=1.0)["tokens"])
+    same_as_eager = torch.equal(a["tokens"], run(3, eager=True)["tokens"])
+    print(f"t=0.1 graph tokens equal the eager loop's: {same_as_eager}")
+
+
+def test_failing_capture_raises(cuda):
+    """A step that reads a value back to the host cannot be captured: the
+    decode raises (in a child process, since a failed capture may leave the
+    allocator's capture state behind) instead of falling back to the eager
+    loop."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from clearconverse_tpu_torch.models import decoding
+import test_torch_cuda as t
+orig = decoding._greedy_step
+def syncing(s, c):
+    orig(s, c)
+    float(s.slp[0])
+decoding._greedy_step = syncing
+model, dims = t._graph_model()
+try:
+    t._graph_call(model, dims, 2, 5, eot=-1)
+except RuntimeError as exc:
+    print("RAISED", "capture failed" in str(exc))
+else:
+    print("NO ERROR")
+"""
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.dirname(here)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, here]))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=root)
+    assert "RAISED True" in proc.stdout, (proc.stdout, proc.stderr[-3000:])

@@ -850,8 +850,10 @@ def test_run_warmup_dev_mode(monkeypatch, capsys):
 
 
 def test_warm_decode_shapes_drives_every_row_bucket_like_jax():
-    """The same drive labels as the JAX warm-up, store-backed long windows,
-    short drives alternating store and host, on a tiny port bundle."""
+    """The same drive labels as the JAX warm-up, largest bucket first (so
+    the first drive sizes the decode graphs' arena), store-backed long
+    windows, short drives alternating store and host, on a tiny port
+    bundle."""
     from clearconverse_tpu_torch.models.convert import init_whisper
     from clearconverse_tpu_torch.models.tokenizer import ByteFallbackTokenizer
     from clearconverse_tpu_torch.models.whisper import WhisperDims
@@ -878,16 +880,16 @@ def test_warm_decode_shapes_drives_every_row_bucket_like_jax():
             return _orig(audio, *a, **kw)
         setattr(bundle, name, spy)
     warm_decode_shapes(eng, lambda label, fn: (drives.append(label), fn()))
-    buckets = ["p4", "p16", "p64", "p256"]
+    buckets = ["p256", "p64", "p16", "p4"]
     assert drives == (
         [f"decode long-window rows={n} prompt={p}"
-         for n in (1, 2) for p in buckets]
-        + ["decode short store rows=1 duration=5.0s",
-           "decode short host rows=1 duration=5.0s",
-           "decode short store rows=2 duration=5.0s",
+         for n in (2, 1) for p in buckets]
+        + ["decode short store rows=2 duration=5.0s",
            "decode short host rows=2 duration=5.0s",
-           "decode short store rows=1 prompt=p64",
-           "decode short store rows=2 prompt=p64"])
+           "decode short store rows=1 duration=5.0s",
+           "decode short host rows=1 duration=5.0s",
+           "decode short store rows=2 prompt=p64",
+           "decode short store rows=1 prompt=p64"])
     assert all(s for k, s in kinds if k == "transcribe_long_batch")
     assert [s for k, s in kinds if k == "transcribe_batch"] == \
         [True, False, True, False, True, True]
