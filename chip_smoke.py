@@ -139,6 +139,17 @@ Phases, each fatal on failure:
                reads (at most ceil(steps / K) + 1), arena and graph-pool
                GB, peak memory against eager; with --profile, the card's
                busy share of one B=128 call on each route.
+ 19. beam graphs — on the rehearsal bundle's small.en, beam search as CUDA
+               graphs (the default route of a CUDA beam_decode) against
+               the eager beam loop: beam_size 5 at t=0 on phase 4's rows
+               through transcribe_batch in bf16 and f32, every beam's
+               tokens and the texts identical, K1 and K2 launching;
+               then beam_decode at the hot path's shapes (30 s noise, 96
+               steps, EOT suppressed, int8 cross-KV, bf16) at 8 and 32
+               unique rows × 5 beams, eager and graph in turns: step ms,
+               call wall and RTFx, capture, replays, stop-flag reads, the
+               KV reorder's bytes a step, arena and pool GB, peak memory
+               against eager.
 Every phase runs with the decode graphs' counts set to 0 before it; the
 phases that decode on the card (GRAPH_PHASES) and every bench block must
 have replayed graphs.
@@ -2231,8 +2242,10 @@ MESH_TOKENS = 32        # decode length of phase 17's calls
 INT8_BATCHES = (8, 32, 128)
 
 
-def transcribe_tokens(bundle, audio, prompts, temperature=0.0):
-    """transcribe_batch, and the tokens of its (last) decode call."""
+def transcribe_tokens(bundle, audio, prompts, temperature=0.0,
+                      all_rows=False):
+    """transcribe_batch, and the tokens of its (last) decode call (of its
+    first len(prompts) rows, or of every row, beams included)."""
     import clearconverse_tpu_torch.pipeline.bundle as bundle_mod
     inner, calls = bundle_mod._unpack_decode, []
 
@@ -2246,7 +2259,8 @@ def transcribe_tokens(bundle, audio, prompts, temperature=0.0):
                                         temperature=temperature)
     finally:
         bundle_mod._unpack_decode = inner
-    return texts, np.asarray(calls[-1][0])[:len(prompts)]
+    tokens = np.asarray(calls[-1][0])
+    return texts, tokens if all_rows else tokens[:len(prompts)]
 
 
 def mesh_whisper(device):
@@ -2422,10 +2436,11 @@ def phase_mesh_quantize(bundle, host_batch):
 # ------------------------------------------- decode graphs (phase 18)
 
 # The phases whose card decodes take the default route (phases 3-11, 13,
-# 16-18); the train phases decode nothing and the bench runs elsewhere.
+# 16-19); the train phases decode nothing and the bench runs elsewhere.
 GRAPH_PHASES = ("slice", "main", "engine", "engine_parity", "overlap",
                 "overlap_parity", "serve", "rehearsal", "int4", "parity",
-                "beam_language_native", "mesh_quantize", "decode_graphs")
+                "beam_language_native", "mesh_quantize", "decode_graphs",
+                "beam_graphs")
 
 GRAPH_BATCHES = (8, 32, 128)
 GRAPH_TOKENS = 96       # the bench hot path's decode length
@@ -2587,6 +2602,152 @@ def phase_decode_graphs(bundle, host_batch, profile: bool):
     graphs.release()
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------- beam search graphs (phase 19)
+
+BEAM_WIDTH = 5
+BEAM_ROWS = (8, 32)     # unique rows; decode rows are BEAM_WIDTH times more
+
+
+def beam_hot_call(model, dims, rows: int, cdt):
+    """Beam search at the bench hot path's shapes: ``rows`` 30 s rows of
+    seeded noise × BEAM_WIDTH beams, [SOT] prompts, int8 cross-KV, EOT
+    suppressed so every group runs GRAPH_TOKENS steps: a function of an
+    optional StageTimer."""
+    from clearconverse_tpu_torch.audio.mel import log_mel_auto
+    from clearconverse_tpu_torch.models import decoding
+
+    audio = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (rows, WINDOW)).astype(np.float32) * 0.1).cuda()
+    B = rows * BEAM_WIDTH
+    toks, lens = decoding.build_prompt_batch([[50257]] * B, 1, 50256)
+    toks, lens = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
+    opts = decoding.DecodeOptions(
+        max_tokens=GRAPH_TOKENS, suppress_blank=False,
+        suppress_tokens=(50256,) + tuple(range(50257, 51864)),
+        compute_dtype=cdt, cross_kv_bits=8, replicas=BEAM_WIDTH, beam=True)
+
+    def call(timer=None):
+        mel = log_mel_auto(audio, n_mels=dims.n_mels)
+        return decoding.beam_decode(model, mel, toks, lens, dims, opts, 1,
+                                    timer=timer)
+    return call
+
+
+def kv_reorder_bytes(dims, B: int, slots: int, itemsize: int = 2) -> int:
+    """Bytes of one step's in-place self-KV reorder: every layer's K and V
+    cache (B rows × width × slots) gathered into a temporary and copied
+    back, each pass reading and writing it once."""
+    cache = dims.n_text_layer * 2 * B * dims.n_text_state * slots * itemsize
+    return 4 * cache
+
+
+def phase_beam_graphs(bundle, host_batch):
+    """Phase 19: beam search as CUDA graphs against the eager beam loop on
+    the rehearsal bundle's small.en: beam_size 5 at t=0 on phase 4's rows
+    (transcribe_batch) in bf16 and f32, identical tokens (every beam's) and
+    texts, K1 and K2 launching on the graph route; then beam_decode at the
+    hot path's shapes at 8 and 32 unique rows × 5 beams in bf16, eager and
+    graph in turns: step ms, call wall and RTFx, replays, captures,
+    stop-flag reads, peak memory against eager."""
+    from clearconverse_tpu_torch.bench import _measured
+    from clearconverse_tpu_torch.models import decode_graph
+    from clearconverse_tpu_torch.utils.tracing import StageTimer
+
+    model, dims, _ = bundle._whisper
+    graphs = decode_graph.graphs_for(model)
+    graphs.release()
+    torch.cuda.empty_cache()
+    base = bundle.torch_config
+    identity, launches = {}, {}
+    try:
+        for name in ("bfloat16", "float32"):
+            bundle.torch_config = dataclasses.replace(
+                base, compute_dtype=name, beam_size=BEAM_WIDTH)
+            rows, counted = {}, {}
+            for route in ("eager", "graph"):
+                with eager_route() if route == "eager" \
+                        else contextlib.nullcontext():
+                    with _measured(torch.device("cuda"), counted):
+                        rows[route] = transcribe_tokens(
+                            bundle, np.asarray(host_batch), [""] * N_SEG,
+                            temperature=0.0, all_rows=True)
+                launches[f"{name}_{route}"] = counted["launches"]
+            identity[name] = {
+                "decode_rows": int(rows["graph"][1].shape[0]),
+                "tokens_identical": bool(np.array_equal(
+                    rows["eager"][1], rows["graph"][1])),
+                "texts_identical": rows["eager"][0] == rows["graph"][0]}
+            graphs.release()
+            torch.cuda.empty_cache()
+            log(f"[beam graphs] beam_size {BEAM_WIDTH} t=0 {name} on phase "
+                f"4's {N_SEG} rows: graph vs eager {identity[name]}; K1/K2 "
+                f"launches eager {launches[name + '_eager']}, graph "
+                f"{launches[name + '_graph']}")
+            if not (identity[name]["tokens_identical"]
+                    and identity[name]["texts_identical"]):
+                raise SystemExit(f"beam graphs: the graph route differs "
+                                 f"from the eager beam loop in {name}")
+            if min(launches[name + "_graph"].values()) == 0:
+                raise SystemExit("beam graphs: K1 or K2 did not launch on "
+                                 "the beam path")
+    finally:
+        bundle.torch_config = base
+
+    timing = {}
+    for rows_n in BEAM_ROWS:
+        B = rows_n * BEAM_WIDTH
+        call = beam_hot_call(model, dims, rows_n, torch.bfloat16)
+        graphs.release()
+        torch.cuda.empty_cache()
+        with eager_route():
+            _, eager1 = graph_call_record(call, graphs, StageTimer(sync=True))
+        _, capture = graph_call_record(call, graphs, StageTimer(sync=True))
+        _, graph1 = graph_call_record(call, graphs, StageTimer(sync=True))
+        arena_gb = graphs.arena_bytes / 1e9
+        pool_gb = graphs.pool_bytes() / 1e9
+        with eager_route():
+            _, eager2 = graph_call_record(call, graphs, None)
+        _, graph2 = graph_call_record(call, graphs, None)
+        reorder = kv_reorder_bytes(dims, B, 1 + GRAPH_TOKENS + decode_graph.K)
+        run = {"decode_rows": B, "eager": [eager1, eager2],
+               "capture_call": capture, "graph": [graph1, graph2],
+               "arena_gb": arena_gb, "pool_gb": pool_gb,
+               "kv_reorder_gb_per_step": reorder / 1e9,
+               "kv_reorder_bound_ms": reorder / HBM_BPS * 1e3,
+               "rtfx": {"eager": rows_n * 30.0 / eager2["wall_s"],
+                        "graph": rows_n * 30.0 / graph2["wall_s"]},
+               "peak_vs_eager": graph1["peak_mem_gb"] / eager1["peak_mem_gb"]}
+        timing[rows_n] = run
+        log(f"[beam graphs] {rows_n} rows x {BEAM_WIDTH} beams bf16, "
+            f"{GRAPH_TOKENS} tokens: step ms eager {eager1['step_ms']:.3f}, "
+            f"graph {graph1['step_ms']:.3f}; call wall eager "
+            f"{eager2['wall_s']:.3f} s, graph {graph2['wall_s']:.3f} s (RTFx "
+            f"{run['rtfx']['eager']:.0f} / {run['rtfx']['graph']:.0f}); "
+            f"capture {capture['captures']} in {capture['capture_s']:.3f} s; "
+            f"replays {graph1['replays']}, stop-flag reads "
+            f"{graph1['flag_reads']} (limit {graph1['flag_read_limit']}); "
+            f"KV reorder {reorder / 1e9:.3f} GB a step "
+            f"({run['kv_reorder_bound_ms']:.3f} ms at the HBM rate); arena "
+            f"{arena_gb:.3f} GB, pool {pool_gb:.3f} GB; peak "
+            f"{graph1['peak_mem_gb']:.3f} GB against eager "
+            f"{eager1['peak_mem_gb']:.3f} GB ({run['peak_vs_eager']:.3f}x)")
+        for rec in (capture, graph1, graph2):
+            if rec["replays"] == 0 or rec["flag_reads"] > rec["flag_read_limit"]:
+                raise SystemExit(f"beam graphs: {rows_n} rows replays "
+                                 f"{rec['replays']}, stop-flag reads "
+                                 f"{rec['flag_reads']}")
+        if capture["captures"] != 1 or graph1["captures"] or graph2["captures"]:
+            raise SystemExit(f"beam graphs: {rows_n} rows captured at the "
+                             f"wrong call")
+        if graph1["steps"] != GRAPH_TOKENS or eager1["steps"] != GRAPH_TOKENS:
+            raise SystemExit(f"beam graphs: {rows_n} rows ran "
+                             f"{graph1['steps']} / {eager1['steps']} steps")
+    graphs.release()
+    torch.cuda.empty_cache()
+    return {"identity": identity, "launches": launches, "timing": timing,
+            "stats": dict(graphs.stats), "k": decode_graph.K}
 
 
 # ------------------------------------------- --cards N: one card a rank
@@ -2842,6 +3003,8 @@ def main() -> int:
                      host_batch)
         graphs = timed("decode_graphs", phase_decode_graphs, rbundle,
                        host_batch, args.profile)
+        beam_graphs = timed("beam_graphs", phase_beam_graphs, rbundle,
+                            host_batch)
         del rbundle
     finally:
         shutil.rmtree(seeded_dir, ignore_errors=True)
@@ -2873,6 +3036,8 @@ def main() -> int:
             "train": train["runs"]["plain"]["launches"][r["name"]],
             "train_remat": train["runs"]["remat"]["launches"][r["name"]],
             "beam": beam["launches"]["beam5_t0"][BENCH_KEY[r["name"]]],
+            "beam_graph": beam_graphs["launches"]["bfloat16_graph"][
+                BENCH_KEY[r["name"]]],
             **{f"mesh_{name}_per_rank": [
                 rk[BENCH_KEY[r["name"]]] for rk in res["ranks"]]
                for name, res in mesh["meshes"].items()},
@@ -2889,6 +3054,7 @@ def main() -> int:
               "parity": parity_recipe, "train": train,
               "train_parity": train_parity, "beam_language_native": beam,
               "mesh_quantize": mesh, "decode_graphs": graphs,
+              "beam_graphs": beam_graphs,
               "graph_counts": graph_counts, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)

@@ -3,10 +3,11 @@ package's jitted ``lax.while_loop`` decode.
 
 JAX compiles encode, cross-KV, prefill and the whole token loop into one
 XLA program per (row bucket, window bucket, prompt bucket, options), so the
-device never waits for the host between tokens. Here the loop's step
-(``decoding._greedy_step``) is captured as a ``torch.cuda.CUDAGraph`` of
-``K`` consecutive steps, one graph per static key, and replayed until a
-stop flag says every row has finished:
+device never waits for the host between tokens; its ``beam_decode`` is one
+such program too. Here the loop's step (``decoding._greedy_step``, or
+``decoding._beam_step`` for beam search) is captured as a
+``torch.cuda.CUDAGraph`` of ``K`` consecutive steps, one graph per static
+key, and replayed until a stop flag says the loop has ended:
 
 * **Stop flag.** After each replay the loop's control pair (steps taken,
   stop) is copied without blocking into pinned host memory and a CUDA
@@ -14,7 +15,8 @@ stop flag says every row has finished:
   runs, so it reads at most ceil(steps / K) + 1 flags a call and the card
   never idles on the read.
 * **Overrun.** Steps past the loop's end write EOT and add nothing to a
-  row's log-probability, as the JAX ``body`` does for finished rows, so a
+  row's log-probability, as the JAX ``body`` does for finished rows (a
+  beam step past the end freezes every beam and stores nothing), so a
   replay that runs past the end changes no output. The token buffer and
   the self-KV cache carry ``K`` spare columns and slots for them.
 * **Static buffers.** A graph replays fixed addresses, so prefill writes
@@ -156,7 +158,7 @@ class GraphBuffers:
     cross_kv: List[Dict[str, Any]]
     self_kv: List[Dict[str, torch.Tensor]]
     generator: Optional[torch.Generator]
-    state: Any = None
+    state: Any = None         # decoding._LoopState or _BeamState
     inputs: Any = None
     graph: Optional[torch.cuda.CUDAGraph] = None
 
@@ -228,7 +230,11 @@ class DecodeGraphs:
 
     @property
     def graphs(self) -> int:
-        return sum(e.graph is not None for e in self._entries.values())
+        return len(self.captured())
+
+    def captured(self) -> List[Any]:
+        """The keys whose graph is captured."""
+        return [k for k, e in self._entries.items() if e.graph is not None]
 
     def pool_bytes(self) -> int:
         """Bytes reserved by the graphs' shared memory pool."""

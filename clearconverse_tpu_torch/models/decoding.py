@@ -4,16 +4,16 @@ The JAX package's models/decoding.py decodes a whole segment batch in one
 XLA program whose token loop is a ``lax.while_loop``. Here pad/trim,
 log-mel (kernel K1 on CUDA), the encoder (kernel K2 on CUDA), head-major
 cross-KV and prompt prefill run eagerly on the device; the token loop is
-one step function, ``_greedy_step``, the counterpart of the JAX loop's
-``body``: every field of its state is a device tensor, so a step never
-waits for the host. On a CUDA tensor (and a whole, unsharded model) the
-loop runs as CUDA graphs of ``decode_graph.K`` consecutive steps, replayed
-until a stop flag read a replay late says every row has emitted EOT
-(``models/decode_graph.py``); on the CPU, and on a model-sharded mesh rank,
-the same step runs eagerly and the host reads the stop flag after each
-step. Variable-length prompts keep exact single-example numerics by giving
-real tokens their absolute positions and masking padded cache slots
-forever.
+one step function, ``_greedy_step`` (``_beam_step`` for beam search), the
+counterpart of the JAX loop's ``body``: every field of its state is a
+device tensor, so a step never waits for the host. On a CUDA tensor (and a
+whole, unsharded model) the loop runs as CUDA graphs of ``decode_graph.K``
+consecutive steps, replayed until a stop flag read a replay late says the
+loop has ended (``models/decode_graph.py``); on the CPU, and on a
+model-sharded mesh rank, the same step runs eagerly and the host reads the
+stop flag after each step. Variable-length prompts keep exact
+single-example numerics by giving real tokens their absolute positions and
+masking padded cache slots forever.
 
 Prompt layout per row: [sot_prev, ...context_tokens..., sot, (notimestamps)],
 left-padded.
@@ -25,7 +25,7 @@ import contextlib
 import dataclasses
 import functools
 import logging
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -466,12 +466,30 @@ def _greedy_steps(s: _LoopState, c: _LoopInputs) -> None:
         _greedy_step(s, c)
 
 
-def _loop_eager(s: _LoopState, c: _LoopInputs) -> int:
-    """The token loop one step at a time, the host reading the stop flag
-    after each. Returns the loop steps taken."""
+def _loop_eager(s, c: _LoopInputs, step=_greedy_step) -> int:
+    """The token loop one ``step`` at a time (``_greedy_step`` or
+    ``_beam_step``), the host reading the stop flag after each. Returns the
+    loop steps taken."""
     while not bool(s.ctl[1]):
-        _greedy_step(s, c)
+        step(s, c)
     return int(s.ctl[0])
+
+
+def _keyed_loop(bufs: decode_graph.GraphBuffers, c: _LoopInputs,
+                new_state: Callable[[], Any]):
+    """The graph route's loop state and inputs: made on the key's first
+    call (``new_state()``), after that the same tensors with this call's
+    inputs copied in, so the captured graph finds them where it left
+    them. The graph's inputs hold no model: the graphs are dropped with
+    the model, so they must not keep it."""
+    if bufs.state is None:
+        bufs.state = new_state()
+        bufs.inputs = dataclasses.replace(c, model=None)
+    else:
+        for name in ("prompt_lens", "padded", "suppress", "temperature"):
+            getattr(bufs.inputs, name).copy_(getattr(c, name))
+    return bufs.state, dataclasses.replace(bufs.inputs, model=c.model,
+                                           opts=c.opts)
 
 
 @functools.lru_cache(maxsize=None)
@@ -499,7 +517,9 @@ def _graph_buffers(graphs: decode_graph.DecodeGraphs, model, mel, B: int,
     """The decode graph buffers of this call's static key: the JAX jit's
     (rows, encoder frames, prompt slots, max_len, options), with only
     "t > 0" of the temperature and no suppression set (both are device
-    inputs of the graph)."""
+    inputs of the graph). ``opts.beam`` and ``opts.replicas`` keep a beam
+    key apart from a greedy or best_of one of the same rows; the arena
+    holds ``mel`` rows (B / replicas) of cross-KV and B of self-KV."""
     key = (B, mel.shape[0], mel.shape[-1], P, max_len, sampling,
            dataclasses.replace(opts, temperature=float(opts.temperature > 0),
                                suppress_tokens=()))
@@ -567,21 +587,12 @@ def greedy_decode(
             c = _loop_inputs(model, dims, opts, cross_kv, prompt_lens, pad,
                              P, max_len + decode_graph.K, logits.shape[-1],
                              gen)
+            new_state = functools.partial(
+                _new_state, B, mt + decode_graph.K, self_kv, dev)
             if bufs is None:
-                s = _new_state(B, mt + decode_graph.K, self_kv, dev)
+                s = new_state()
             else:
-                if bufs.state is None:
-                    bufs.state = _new_state(B, mt + decode_graph.K,
-                                            self_kv, dev)
-                    # The graph's inputs hold no model: the graphs are
-                    # dropped with the model, so they must not keep it.
-                    bufs.inputs = dataclasses.replace(c, model=None)
-                else:
-                    for name in ("prompt_lens", "padded", "suppress",
-                                 "temperature"):
-                        getattr(bufs.inputs, name).copy_(getattr(c, name))
-                s = bufs.state
-                c = dataclasses.replace(bufs.inputs, model=model, opts=opts)
+                s, c = _keyed_loop(bufs, c, new_state)
             _start_loop(s, c, logits[:, -1, :], opts)
             if bufs is None:
                 loop_steps = _loop_eager(s, c)
@@ -596,6 +607,193 @@ def greedy_decode(
     out = _finalize_decode(tokens, slp, no_speech_prob, opts)
     out["steps"] = loop_steps + 1    # token positions decoded
     return out
+
+
+@dataclasses.dataclass
+class _BeamState:
+    """beam_decode's carry, the JAX ``while_loop`` state ``(step, tokens,
+    kv, slp, prev, prev2, last_ts, fin_tokens, fin_scores, fin_count)``:
+    every field a device tensor, updated in place. ``ctl`` = [loop steps
+    taken, stop] (long), as in ``_LoopState``."""
+
+    step: torch.Tensor        # 0-d long: the index of the token being chosen
+    tokens: torch.Tensor      # [B, max_tokens + K] long: each beam's history
+    kv: List[Dict[str, torch.Tensor]]
+    slp: torch.Tensor         # [B] f32 cumulative logprob of each live beam
+    prev: torch.Tensor        # [B] long: each beam's last token
+    prev2: torch.Tensor       # [B] long: the one before (-1 = none)
+    last_ts: torch.Tensor     # [B] long: the latest timestamp (-1 = none)
+    fin_tokens: torch.Tensor  # [G, R + 1, max_tokens] long; slot R drops
+    fin_scores: torch.Tensor  # [G, R + 1] f32
+    fin_count: torch.Tensor   # [G] long: finished sequences stored
+    ctl: torch.Tensor         # [2] long
+
+
+def _new_beam_state(B: int, R: int, mt: int, kv, dev) -> _BeamState:
+    def e(*shape, dtype=torch.long):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    G = B // R
+    return _BeamState(e(), e(B, mt + decode_graph.K), kv,
+                      e(B, dtype=torch.float32), e(B), e(B), e(B),
+                      e(G, R + 1, mt), e(G, R + 1, dtype=torch.float32),
+                      e(G), e(2))
+
+
+def _beam_store(s: _BeamState, ord_sc: torch.Tensor, ord_idx: torch.Tensor,
+                slots: torch.Tensor, keep: torch.Tensor) -> None:
+    """Write the histories of beams ``ord_idx`` ([G, R] beam indices per
+    group) with scores ``ord_sc`` into store slots ``slots`` where ``keep``.
+    The rest go to the spare slot R, which nothing reads: a fixed-shape
+    scatter, the JAX ``.at[].set(mode="drop")``, with no host read."""
+    G, R1, mt = s.fin_tokens.shape
+    R = R1 - 1
+    hist = s.tokens.reshape(G, R, -1)[:, :, :mt].gather(
+        1, ord_idx[:, :, None].expand(G, R, mt))
+    slot_w = torch.where(keep, slots, R)
+    g = torch.arange(G, device=slots.device)[:, None].expand(G, R)
+    s.fin_tokens.index_put_((g, slot_w), hist)
+    s.fin_scores.index_put_((g, slot_w), ord_sc)
+
+
+def _beam_stop(s: _BeamState, c: _LoopInputs) -> torch.Tensor:
+    """The negated JAX ``cond`` at the state's step (0-d bool): max_tokens
+    reached, or every group full or at the context end."""
+    R = c.opts.replicas
+    plen_g = c.prompt_lens.reshape(-1, R)[:, 0]
+    ended = (s.fin_count >= R) | ((plen_g + s.step) >= c.dims.n_text_ctx)
+    return ended.all() | (s.step >= c.opts.max_tokens)
+
+
+def _start_beam(s: _BeamState, c: _LoopInputs,
+                last_logits: torch.Tensor) -> None:
+    """Step 0 (from the prefill's last logits) and the loop's initial
+    state, written into ``s``. The R beams of a group hold one prompt, so
+    their logits are identical and whisper's first update dedups them into
+    one distribution: live = its top R non-EOT tokens; an EOT outranking
+    the R-th of them seeds the finished store."""
+    opts = c.opts
+    eot, R = opts.eot, opts.replicas
+    B = s.prev.shape[0]
+    G = B // R
+    first = _suppress(last_logits, opts, True, c.suppress)
+    none = torch.full_like(s.prev, -1)
+    if opts.timestamps:
+        first = _timestamp_rules(first, opts, True, none, none, none, 0)
+    logp0 = F.log_softmax(first.float(), dim=-1)
+    l0 = logp0.reshape(G, R, -1)[:, 0, :]
+    eot0 = l0[:, eot]
+    s0, t0 = torch.topk(l0.index_fill(
+        1, torch.tensor([eot], device=l0.device), float("-inf")), R, dim=-1)
+    tok0 = t0.reshape(B)
+    s.step.fill_(1)
+    s.tokens.fill_(eot)
+    s.tokens[:, 0] = tok0
+    s.slp.copy_(s0.reshape(B))
+    s.prev.copy_(tok0)
+    s.prev2.copy_(none)
+    s.last_ts.copy_(torch.where(tok0 >= opts.timestamp_begin, tok0, none)
+                    if opts.timestamps else none)
+    eot_valid0 = eot0 > s0[:, R - 1]
+    # The store: an all-EOT token row is the empty sequence.
+    s.fin_tokens.fill_(eot)
+    s.fin_scores.fill_(float("-inf"))
+    s.fin_scores[:, 0] = torch.where(eot_valid0, eot0,
+                                     torch.full_like(eot0, float("-inf")))
+    s.fin_count.copy_(eot_valid0.long())
+    s.ctl[0] = 0
+    s.ctl[1].copy_(_beam_stop(s, c))
+
+
+def _beam_step(s: _BeamState, c: _LoopInputs) -> None:
+    """One beam-search step for every group, in place: the JAX loop's
+    ``body``. Reads nothing from the host, so K of them capture into one
+    CUDA graph. A step past the loop's end (``ctl[1]`` set: the JAX
+    ``cond`` false) treats every beam as frozen, so it stores nothing and
+    leaves the beams, their cache rows and ``ctl[0]`` as they were."""
+    opts, dims = c.opts, c.dims
+    eot, R = opts.eot, opts.replicas
+    B = s.prev.shape[0]
+    G = B // R
+    step = s.step
+    live = s.ctl[1] == 0
+    pos = torch.clamp(c.prompt_lens + step - 1, 0, dims.n_text_ctx - 1)
+    mask = torch.where(c.padded | (c.kslot > step + (c.P - 1)), _NEG_INF, 0.0)
+    logits, _ = decoder_forward(
+        c.model, s.prev[:, None], pos[:, None], step + (c.P - 1), s.kv,
+        c.cross_kv, mask, None, dims, opts.compute_dtype)
+    lg = _suppress(logits[:, 0, :], opts, False, c.suppress)
+    if opts.timestamps:
+        lg = _timestamp_rules(lg, opts, False, s.prev, s.prev2, s.last_ts,
+                              step)
+    logp = F.log_softmax(lg.float(), dim=-1)
+    V = logp.shape[-1]
+    # Context-full groups freeze in place; their live beams fill the store
+    # at finalize, like whisper's loop break.
+    frozen = ((c.prompt_lens + step) >= dims.n_text_ctx) | ~live    # [B]
+    plen_g = c.prompt_lens.reshape(G, R)[:, 0]
+    active_g = ((plen_g + step) < dims.n_text_ctx) & live             # [G]
+    cand = (s.slp[:, None] + logp).reshape(G, R, V)
+    eot_sc = cand[:, :, eot].clone()                                   # [G, R]
+    cand[:, :, eot] = float("-inf")
+    sc, flat = torch.topk(cand.reshape(G, R * V), R, dim=-1)           # [G, R]
+    # whisper's update(): sorted candidates route EOT to finished and the
+    # rest to live, and stop once R are live, so an EOT is saved iff it
+    # outranks the R-th live candidate.
+    eot_valid = (eot_sc > sc[:, R - 1:R]) & active_g[:, None]
+    ord_sc, ord_idx = torch.topk(
+        torch.where(eot_valid, eot_sc, float("-inf")), R, dim=-1)
+    valid = ord_sc > float("-inf")
+    slots = s.fin_count[:, None] + torch.cumsum(valid.long(), 1) - 1
+    keep = valid & (slots < R)
+    _beam_store(s, ord_sc, ord_idx, slots, keep)
+    s.fin_count.add_(keep.long().sum(1))
+
+    own = torch.arange(B, device=s.prev.device)
+    group_base = torch.arange(G, device=own.device)[:, None] * R
+    src = torch.where(frozen, own, (flat // V + group_base).reshape(B))
+    tok = (flat % V).reshape(B)
+    # Reorder every per-beam state to the winners' ancestry, the self-KV
+    # cache included (the forward above wrote slot P+step-1 for each
+    # current beam, so gathering after it keeps the chosen beams' whole
+    # history). Each cache buffer gathers into a temporary and copies back
+    # into its fixed address. Cross-KV is per group.
+    for layer in s.kv:
+        for t in layer.values():
+            t.copy_(t.index_select(0, src))
+    col = step.reshape(1)
+    tokens = s.tokens.index_select(0, src)
+    tokens.index_copy_(1, col, torch.where(
+        frozen[:, None], tokens.index_select(1, col), tok[:, None]))
+    s.tokens.copy_(tokens)
+    s.slp.copy_(torch.where(frozen, s.slp, sc.reshape(B)))
+    taken_ts = s.last_ts.index_select(0, src)
+    if opts.timestamps:
+        taken_ts = torch.where(tok >= opts.timestamp_begin, tok, taken_ts)
+    s.last_ts.copy_(torch.where(frozen, s.last_ts, taken_ts))
+    s.prev2.copy_(torch.where(frozen, s.prev2, s.prev.index_select(0, src)))
+    s.prev.copy_(torch.where(frozen, s.prev, tok))
+    s.ctl[0].add_(live.long())
+    step.add_(1)
+    s.ctl[1].copy_(_beam_stop(s, c))
+
+
+def _beam_steps(s: _BeamState, c: _LoopInputs) -> None:
+    """``decode_graph.K`` beam steps: what one beam decode graph captures."""
+    for _ in range(decode_graph.K):
+        _beam_step(s, c)
+
+
+def _finish_beam(s: _BeamState, opts: DecodeOptions):
+    """whisper's finalize(): groups short of R finished sequences fill
+    their remaining slots from the live beams by cumulative score. Returns
+    copies of the store's tokens [B, max_tokens] and scores [B]."""
+    R = opts.replicas
+    G = s.fin_count.shape[0]
+    ord_sc, ord_idx = torch.topk(s.slp.reshape(G, R), R, dim=-1)
+    slots = s.fin_count[:, None] + torch.arange(R, device=s.slp.device)
+    _beam_store(s, ord_sc, ord_idx, slots, slots < R)
+    return (s.fin_tokens[:, :R].reshape(G * R, -1).clone(),
+            s.fin_scores[:, :R].reshape(G * R).clone())
 
 
 @torch.inference_mode()
@@ -614,11 +812,11 @@ def beam_decode(
 
     ``opts.replicas`` = beam width R; mel carries unique rows and prompts /
     outputs carry rows × R with beams consecutive per row, so the beams of
-    a row share one encoder forward and one cross-KV stream. Per step: one
-    decoder forward over all beams, candidate scores = cumulative + token
-    logprob, the live set becomes the top-R non-EOT candidates over the
-    R×V grid, and the self-KV cache, token history and timestamp state
-    gather to the surviving beams' source rows.
+    a row share one encoder forward and one cross-KV stream. Per step
+    (``_beam_step``): one decoder forward over all beams, candidate scores
+    = cumulative + token logprob, the live set becomes the top-R non-EOT
+    candidates over the R×V grid, and the self-KV cache, token history and
+    timestamp state gather to the surviving beams' source rows.
 
     Finished sequences live in a capacity-R store per group: an EOT
     candidate is saved iff it outranks the R-th live candidate,
@@ -629,138 +827,59 @@ def beam_decode(
     descending cumulative score, EOT appended at no cost (whisper's
     finalize()). Returns the greedy_decode dict with the R finished
     sequences per row in store order; the caller picks each row's winner by
-    sum_logprob / length."""
+    sum_logprob / length.
+
+    On a CUDA tensor and a whole model the loop runs as CUDA graphs of
+    ``decode_graph.K`` beam steps, one per static key, as greedy_decode's
+    does; on the CPU and on a model-sharded rank the same step runs
+    eagerly."""
     B, P = prompt_tokens.shape
     R = opts.replicas
-    G = B // R
     if opts.temperature > 0:
         raise ValueError("beam search is temperature-0 only (whisper "
                          "semantics: best_of handles sampling rungs)")
+    if P > max_prompt_len:
+        raise ValueError(f"prompt slots ({P}) exceed max_prompt_len "
+                         f"({max_prompt_len})")
     prompt_tokens = prompt_tokens.long()
     prompt_lens = prompt_lens.long()
     dev = mel.device
-    mt, eot = opts.max_tokens, opts.eot
-    cross_kv, kv, logits, pad, max_len = _prefill(
-        model, mel, prompt_tokens, prompt_lens, dims, opts, max_prompt_len,
-        timer)
-    V = logits.shape[-1]
-    no_speech_prob = _no_speech_from_prefill(logits, opts, P)
-    neg_inf = float("-inf")
+    mt = opts.max_tokens
+    graphs = decode_graph.graphs_for(model) if _graph_route(model, dev) \
+        else None
+    with graphs.lock if graphs is not None else contextlib.nullcontext():
+        bufs = None
+        if graphs is not None:
+            bufs = _graph_buffers(graphs, model, mel, B, P,
+                                  max_prompt_len + mt, dims, opts, False)
+        cross_kv, self_kv, logits, pad, max_len = _prefill(
+            model, mel, prompt_tokens, prompt_lens, dims, opts,
+            max_prompt_len, timer, spare=decode_graph.K, bufs=bufs)
+        no_speech_prob = _no_speech_from_prefill(logits, opts, P)
 
-    with _span(timer, "token_loop"):
-        smask = _suppress_mask(opts, V, dev)
-        first = _suppress(logits[:, -1, :], opts, True, smask)
-        none = torch.full((B,), -1, dtype=torch.long, device=dev)
-        if opts.timestamps:
-            first = _timestamp_rules(first, opts, True, none, none, none, 0)
-        logp0 = F.log_softmax(first.float(), dim=-1)
-        # Step 0: the R beams of a group hold one prompt, so their logits
-        # are identical and whisper's first update dedups them into one
-        # distribution: live = its top R non-EOT tokens; an EOT outranking
-        # the R-th of them seeds the finished store.
-        l0 = logp0.reshape(G, R, V)[:, 0, :]
-        eot0 = l0[:, eot]
-        s0, t0 = torch.topk(l0.index_fill(1, torch.tensor([eot], device=dev),
-                                          neg_inf), R, dim=-1)
-        prev = t0.reshape(B)
-        slp = s0.reshape(B).float()
-        tokens = torch.full((B, mt), eot, dtype=torch.long, device=dev)
-        tokens[:, 0] = prev
-        last_ts = (torch.where(prev >= opts.timestamp_begin, prev, none)
-                   if opts.timestamps else none)
-        prev2 = none
-        eot_valid0 = eot0 > s0[:, R - 1]
-        # The store: an all-EOT token row is the empty sequence.
-        fin_tokens = torch.full((G, R, mt), eot, dtype=torch.long, device=dev)
-        fin_scores = torch.full((G, R), neg_inf, device=dev)
-        fin_scores[:, 0] = torch.where(eot_valid0, eot0,
-                                       torch.full_like(eot0, neg_inf))
-        fin_count = eot_valid0.long()
-
-        g_idx = torch.arange(G, device=dev)[:, None]
-        group_base = g_idx * R
-        own = torch.arange(B, device=dev)
-        plen_g = prompt_lens.reshape(G, R)[:, 0]
-        kslot = torch.arange(max_len, device=dev)[None, None, None, :]
-        padded = kslot < pad[:, None, None, :]
-
-        def store(rows, ord_sc, ord_idx, slots, keep):
-            """Write the histories ``rows[ord_idx]`` (beam indices per
-            group) with scores ``ord_sc`` into store slots ``slots`` where
-            ``keep``; the rest are dropped."""
-            hist = rows.reshape(G, R, mt).gather(
-                1, ord_idx[:, :, None].expand(G, R, mt))
-            gi, ri = torch.nonzero(keep, as_tuple=True)
-            fin_tokens[gi, slots[gi, ri]] = hist[gi, ri]
-            fin_scores[gi, slots[gi, ri]] = ord_sc[gi, ri]
-
-        step = 1
-        while step < mt and not bool(
-                ((fin_count >= R) | ((plen_g + step) >= dims.n_text_ctx)).all()):
-            pos = torch.clamp(prompt_lens + step - 1, 0, dims.n_text_ctx - 1)
-            mask = torch.where(padded | (kslot > P - 1 + step), _NEG_INF, 0.0)
-            logits, kv = decoder_forward(
-                model, prev[:, None], pos[:, None], P + step - 1, kv,
-                cross_kv, mask.float(), None, dims, opts.compute_dtype)
-            lg = _suppress(logits[:, 0, :], opts, False, smask)
-            if opts.timestamps:
-                lg = _timestamp_rules(lg, opts, False, prev, prev2, last_ts,
-                                      step)
-            logp = F.log_softmax(lg.float(), dim=-1)
-            # Context-full groups freeze in place; their live beams fill the
-            # store at finalize, like whisper's loop break.
-            frozen = (prompt_lens + step) >= dims.n_text_ctx          # [B]
-            active_g = (plen_g + step) < dims.n_text_ctx               # [G]
-            cand = (slp[:, None] + logp).reshape(G, R, V)
-            eot_sc = cand[:, :, eot]                                   # [G, R]
-            live = cand.clone()
-            live[:, :, eot] = neg_inf
-            sc, flat = torch.topk(live.reshape(G, R * V), R, dim=-1)   # [G, R]
-            # whisper's update(): sorted candidates route EOT to finished
-            # and the rest to live, and stop once R are live, so an EOT is
-            # saved iff it outranks the R-th live candidate.
-            eot_valid = (eot_sc > sc[:, R - 1:R]) & active_g[:, None]
-            ord_sc, ord_idx = torch.topk(
-                torch.where(eot_valid, eot_sc,
-                            torch.full_like(eot_sc, neg_inf)), R, dim=-1)
-            valid = ord_sc > neg_inf
-            slots = fin_count[:, None] + torch.cumsum(valid.long(), 1) - 1
-            keep = valid & (slots < R)
-            store(tokens, ord_sc, ord_idx, slots, keep)
-            fin_count = fin_count + keep.long().sum(1)
-
-            src = torch.where(frozen, own, (flat // V + group_base).reshape(B))
-            tok = (flat % V).reshape(B)
-            # Reorder every per-beam state to the winners' ancestry, the
-            # self-KV cache included (the forward above wrote slot
-            # P+step-1 for each current beam, so gathering after it keeps
-            # the chosen beams' whole history). Cross-KV is per group.
-            kv = [{name: t.index_select(0, src) for name, t in layer.items()}
-                  for layer in kv]
-            tokens = tokens.index_select(0, src)
-            tokens[:, step] = torch.where(frozen, tokens[:, step], tok)
-            slp = torch.where(frozen, slp, sc.reshape(B))
-            new_prev2 = torch.where(frozen, prev2, prev.index_select(0, src))
-            taken_ts = last_ts.index_select(0, src)
-            if opts.timestamps:
-                taken_ts = torch.where(tok >= opts.timestamp_begin, tok,
-                                       taken_ts)
-            last_ts = torch.where(frozen, last_ts, taken_ts)
-            prev = torch.where(frozen, prev, tok)
-            prev2 = new_prev2
-            step += 1
-
-        # whisper's finalize(): groups short of R finished sequences fill
-        # their remaining slots from the live beams by cumulative score.
-        ord_sc, ord_idx = torch.topk(slp.reshape(G, R), R, dim=-1)
-        slots = fin_count[:, None] + torch.arange(R, device=dev)[None, :]
-        store(tokens, ord_sc, ord_idx, slots, slots < R)
+        with _span(timer, "token_loop"):
+            c = _loop_inputs(model, dims, opts, cross_kv, prompt_lens, pad,
+                             P, max_len + decode_graph.K, logits.shape[-1],
+                             None)
+            new_state = functools.partial(_new_beam_state, B, R, mt,
+                                          self_kv, dev)
+            if bufs is None:
+                s = new_state()
+            else:
+                s, c = _keyed_loop(bufs, c, new_state)
+            _start_beam(s, c, logits[:, -1, :])
+            if bufs is None:
+                loop_steps = _loop_eager(s, c, _beam_step)
+            else:
+                loop_steps = graphs.run(
+                    bufs, functools.partial(_beam_steps, s, c), s.ctl,
+                    -(-(mt - 1) // decode_graph.K), timer) if mt > 1 else 0
+            fin_tokens, fin_scores = _finish_beam(s, opts)
 
     if timer is not None:
-        timer.count("token_loop_steps", step - 1)
-    out = _finalize_decode(fin_tokens.reshape(B, mt), fin_scores.reshape(B),
-                           no_speech_prob, opts)
-    out["steps"] = step
+        timer.count("token_loop_steps", loop_steps)
+    out = _finalize_decode(fin_tokens, fin_scores, no_speech_prob, opts)
+    out["steps"] = loop_steps + 1    # token positions decoded
     return out
 
 

@@ -22,7 +22,9 @@ Two drive kinds:
     transcribe_batch at every power-of-two row bucket × duration bucket,
     store-backed and from host arrays. On the card each drive captures the
     decode graph of its key; the largest bucket goes first, so the graphs'
-    shared arena is sized once and no later drive replaces it.
+    shared arena is sized once and no later drive replaces it. With
+    ``beam_size > 1`` and a temperature ladder whose first rung is 0, each
+    drive's first rung is beam search, so its beam keys are captured too.
 """
 
 from __future__ import annotations
@@ -80,7 +82,8 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
     arrays (separated overlap clips), plus p64 prompts at the row
     extremes, each from the largest down (the first drive sizes the decode
     graphs' arena). Returns the decode graphs' counts on the card
-    (captures, capture_s, replays, ..., ``graphs``, ``arena_gb``), None
+    (captures, capture_s, replays, ..., ``graphs``, ``beam_graphs``,
+    ``arena_gb``), None
     elsewhere. A bundle that is not the port's ModelBundle (the dev
     backend) is skipped."""
     from clearconverse_tpu_torch.pipeline.bundle import (
@@ -145,7 +148,10 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
         return None
     from clearconverse_tpu_torch.models.decode_graph import graphs_for
     graphs = graphs_for(bundle._whisper[0])
-    return dict(graphs.stats, graphs=graphs.graphs,
+    # A key's last item is its DecodeOptions (decoding._graph_buffers).
+    beam = sum(bool(key[-1].beam and key[-1].replicas > 1)
+               for key in graphs.captured())
+    return dict(graphs.stats, graphs=graphs.graphs, beam_graphs=beam,
                 arena_gb=graphs.arena_bytes / 1e9)
 
 

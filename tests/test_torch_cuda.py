@@ -2,9 +2,10 @@
 version, the wrappers' input checks, a tiny transcription (and an int4
 cross-KV decode) on the card against the same on the CPU, the speaker and
 separation models card vs CPU, a tiny dress-rehearsal round trip on the card,
-the bench's hot-path line, int8 decoder weights card vs CPU and two mesh
-ranks sharing the card. Every test needs a CUDA card and skips without
-one.
+the bench's hot-path line, int8 decoder weights card vs CPU, two mesh
+ranks sharing the card, and the token loop as CUDA graphs (greedy,
+sampling and beam search) against the eager loop. Every test needs a CUDA
+card and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without JAX. tests/conftest.py imports JAX, so there run it as:
@@ -750,6 +751,112 @@ decoding._greedy_step = syncing
 model, dims = t._graph_model()
 try:
     t._graph_call(model, dims, 2, 5, eot=-1)
+except RuntimeError as exc:
+    print("RAISED", "capture failed" in str(exc))
+else:
+    print("NO ERROR")
+"""
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.dirname(here)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, here]))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=root)
+    assert "RAISED True" in proc.stdout, (proc.stdout, proc.stderr[-3000:])
+
+
+# ------------------------------------------- beam search as CUDA graphs
+
+def _beam_call(model, dims, rows, seed, eager=False, monkeypatch=None,
+               replicas=5, **opt_kw):
+    """greedy_decode_from_audio with beam search (``replicas`` beams a row,
+    t=0, one prompt per row tiled over its beams) on ``rows`` rows of
+    seeded noise, on the graph route or, when ``eager``, the eager one."""
+    from clearconverse_tpu_torch.models import decoding
+
+    lists = [[50360, 11, 22, 50257, 50362], [50257, 50362],
+             [50360, 7, 50257, 50362]]
+    toks, lens = decoding.build_prompt_batch(
+        [lists[i % 3] for i in range(rows) for _ in range(replicas)], 8,
+        50256)
+    kw = dict(max_tokens=20, no_speech_token=50361, replicas=replicas,
+              beam=True, suppress_tokens=tuple(range(50257, 51864)))
+    kw.update(opt_kw)
+    opts = decoding.DecodeOptions(**kw)
+    audio = _randn((rows, 24000), seed, 0.1).cuda()
+    args = (model, audio, torch.from_numpy(toks).cuda(),
+            torch.from_numpy(lens).cuda(), dims, opts, 8)
+    if eager:
+        with monkeypatch.context() as m:
+            m.setattr(decoding, "_graph_route", lambda model, dev: False)
+            return decoding.greedy_decode_from_audio(*args, target_len=32000)
+    return decoding.greedy_decode_from_audio(*args, target_len=32000)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_beam_graph_matches_eager_on_card(cuda, monkeypatch, dtype):
+    """beam_size 5 at t=0: the graph route gives the eager beam loop's
+    packed result (tokens, lengths, scores) and step count exactly, replays
+    its graph and reads the stop flag at most ceil(steps / K) + 1 times; a
+    second call of the same key with other audio captures nothing and
+    equals the eager loop for that audio."""
+    from clearconverse_tpu_torch.models import decode_graph
+
+    model, dims = _graph_model(dtype)
+    graphs = decode_graph.graphs_for(model)
+    kw = dict(compute_dtype=dtype, monkeypatch=monkeypatch)
+    eager = _beam_call(model, dims, 3, 40, eager=True, **kw)
+    before = dict(graphs.stats)
+    graph = _beam_call(model, dims, 3, 40, **kw)
+    _same_decode(graph, eager)
+    assert graphs.stats["captures"] == before["captures"] + 1
+    reads = graphs.stats["flag_reads"] - before["flag_reads"]
+    assert reads <= -(-graph["steps"] // decode_graph.K) + 1
+    before = dict(graphs.stats)
+    again = _beam_call(model, dims, 3, 41, **kw)
+    assert graphs.stats["captures"] == before["captures"]
+    assert graphs.stats["replays"] > before["replays"]
+    _same_decode(again, _beam_call(model, dims, 3, 41, eager=True, **kw))
+
+
+def test_beam_and_greedy_keys_share_the_arena(cuda, monkeypatch):
+    """Beam keys (5 beams, int8 self-KV and int4 cross-KV) and a greedy
+    key of the same unique rows, largest first, in turns: one capture a
+    key, one arena, and every call equals its eager route."""
+    from clearconverse_tpu_torch.models import decode_graph
+
+    model, dims = _graph_model()
+    graphs = decode_graph.graphs_for(model)
+    kw = dict(self_kv_bits=8, cross_kv_bits=4, monkeypatch=monkeypatch)
+    for rows, seed in ((4, 50), (2, 51), (4, 52), (2, 53)):
+        for call in (_beam_call, _graph_call):
+            _same_decode(call(model, dims, rows, seed, **kw),
+                         call(model, dims, rows, seed, eager=True, **kw))
+    assert graphs.stats["captures"] == 4 and graphs.graphs == 4
+    assert graphs.stats["arena_allocs"] == 1
+    assert graphs.stats["replays"] > 0
+
+
+def test_failing_beam_capture_raises(cuda):
+    """A beam step that reads a value back to the host cannot be captured:
+    beam search raises (in a child process, as the greedy test) instead of
+    falling back to the eager loop."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from clearconverse_tpu_torch.models import decoding
+import test_torch_cuda as t
+orig = decoding._beam_step
+def syncing(s, c):
+    orig(s, c)
+    float(s.slp[0])
+decoding._beam_step = syncing
+model, dims = t._graph_model()
+try:
+    t._beam_call(model, dims, 2, 5,
+                 suppress_tokens=(50256,) + tuple(range(50257, 51864)))
 except RuntimeError as exc:
     print("RAISED", "capture failed" in str(exc))
 else:
