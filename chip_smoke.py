@@ -150,6 +150,25 @@ Phases, each fatal on failure:
                call wall and RTFx, capture, replays, stop-flag reads, the
                KV reorder's bytes a step, arena and pool GB, peak memory
                against eager.
+ 20. bf16 contract — the default bf16 decode against f32 on the card at
+               full small.en width (the rehearsal checkpoint in bf16, as
+               the bundle serves it, and in f32), t=0, int8 cross-KV, the
+               graph route, on phase 4's voiced rows and on the hot path's
+               30 s noise rows at B = 8, 32, 128: encoder mean and max
+               |Δ|, prefill-logit mean |Δ| from one shared f32 encoder
+               output and its argmax flips, token rows that differ; beam
+               search (8 rows × 5) likewise; graph ≡ eager at B=8 in both
+               dtypes; the tokens with cuBLAS's reduced-precision bf16
+               reductions allowed; phase 18's graph step ms beside the
+               step with bf16 logits and residual stream. Fails when the encoder's mean drift reaches the JAX
+               package's bf16 bound (0.05) or graph and eager differ.
+ 21. warm-up — serve/warmup.run_warmup on the rehearsal checkpoints with
+               the crafted PyanNet at the default knobs (decode shapes,
+               then the engine passes), against the same drives with the
+               engine passes first, each on a fresh engine: the decode
+               graphs' arena_allocs, graphs, and the keys an engine pass
+               captured that the end of the warm-up no longer holds. Fails
+               unless run_warmup allocates the arena once and keeps them.
 Every phase runs with the decode graphs' counts set to 0 before it; the
 phases that decode on the card (GRAPH_PHASES) and every bench block must
 have replayed graphs.
@@ -2440,7 +2459,7 @@ def phase_mesh_quantize(bundle, host_batch):
 GRAPH_PHASES = ("slice", "main", "engine", "engine_parity", "overlap",
                 "overlap_parity", "serve", "rehearsal", "int4", "parity",
                 "beam_language_native", "mesh_quantize", "decode_graphs",
-                "beam_graphs")
+                "beam_graphs", "bf16_contract", "warmup")
 
 GRAPH_BATCHES = (8, 32, 128)
 GRAPH_TOKENS = 96       # the bench hot path's decode length
@@ -2459,6 +2478,12 @@ def eager_route():
         decoding._graph_route = orig
 
 
+def noise_rows(B: int, seed: int) -> torch.Tensor:
+    """B rows of 30 s of seeded noise on the card."""
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (B, WINDOW)).astype(np.float32) * 0.1).cuda()
+
+
 def hot_path_call(model, dims, B: int, cdt):
     """The bench hot path's decode at B rows (30 s of seeded noise, [SOT]
     prompts, EOT off so every row decodes GRAPH_TOKENS tokens, int8
@@ -2466,8 +2491,7 @@ def hot_path_call(model, dims, B: int, cdt):
     from clearconverse_tpu_torch.audio.mel import log_mel_auto
     from clearconverse_tpu_torch.models import decoding
 
-    audio = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (B, WINDOW)).astype(np.float32) * 0.1).cuda()
+    audio = noise_rows(B, 0)
     toks, lens = decoding.build_prompt_batch([[50257]] * B, 1, 50256)
     toks, lens = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
     opts = decoding.DecodeOptions(
@@ -2618,8 +2642,7 @@ def beam_hot_call(model, dims, rows: int, cdt):
     from clearconverse_tpu_torch.audio.mel import log_mel_auto
     from clearconverse_tpu_torch.models import decoding
 
-    audio = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        (rows, WINDOW)).astype(np.float32) * 0.1).cuda()
+    audio = noise_rows(rows, 1)
     B = rows * BEAM_WIDTH
     toks, lens = decoding.build_prompt_batch([[50257]] * B, 1, 50256)
     toks, lens = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
@@ -2748,6 +2771,189 @@ def phase_beam_graphs(bundle, host_batch):
     torch.cuda.empty_cache()
     return {"identity": identity, "launches": launches, "timing": timing,
             "stats": dict(graphs.stats), "k": decode_graph.K}
+
+
+# ------------------------------------------- the bf16 contract (phase 20)
+
+JAX_BF16_BOUND = 0.05   # the JAX package's bf16 encoder bound, mean |Δ|
+# Phase 18's graph step at B = 8 / 32 / 128 when the decoder rounded its
+# residual stream and its logits to bf16 (PERF.md §5).
+BF16_ROUNDED_STEP_MS = {8: "1.92", 32: "2.97", 128: "6.64-6.83"}
+
+
+def prefill_logits(model, feats, dims, cdt):
+    """Logits of an [SOT] prefill on ``feats`` (cast to ``cdt``), int8
+    cross-KV as the decode reads it: [B, vocab] f32."""
+    from clearconverse_tpu_torch.models import decoding
+    from clearconverse_tpu_torch.models.whisper import (
+        decoder_forward, init_kv_cache, precompute_cross_kv)
+
+    B = feats.shape[0]
+    ckv = [decoding._widen_codes(c, cdt) for c in precompute_cross_kv(
+        model, feats.to(cdt), dims.n_text_head, bits=8)]
+    kv = init_kv_cache(dims, B, 1, cdt, device="cuda")
+    tokens = torch.full((B, 1), 50257, dtype=torch.long, device="cuda")
+    pos = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+    mask = torch.zeros((B, 1, 1, 1), device="cuda")
+    logits, _ = decoder_forward(model, tokens, pos, 0, kv, ckv, mask, None,
+                                dims, cdt)
+    return logits[:, -1]
+
+
+def bf16_agreement(models, dims, audio, decode):
+    """bf16 against f32 on one batch: ``models`` maps "bf16"/"f32" to
+    (model, dtype); ``decode(model, mel, cdt)`` returns a decode's tokens.
+    Encoder mean / max |Δ|, prefill-logit mean |Δ| and argmax flips from
+    the f32 encoder output, and the token rows that differ."""
+    from clearconverse_tpu_torch.audio.mel import log_mel_auto, pad_or_trim
+    from clearconverse_tpu_torch.models.whisper import whisper_encode
+
+    with torch.inference_mode():
+        mel = log_mel_auto(pad_or_trim(audio, WINDOW), n_mels=dims.n_mels)
+        enc = {k: whisper_encode(m, mel, dims, cdt).float()
+               for k, (m, cdt) in models.items()}
+        d_enc = (enc["bf16"] - enc["f32"]).abs()
+        logits = {k: prefill_logits(m, enc["f32"], dims, cdt)
+                  for k, (m, cdt) in models.items()}
+        d_log = (logits["bf16"] - logits["f32"]).abs()
+        flips = int((logits["bf16"].argmax(-1)
+                     != logits["f32"].argmax(-1)).sum())
+    tokens = {k: decode(m, mel, cdt).cpu() for k, (m, cdt) in models.items()}
+    rows = int((tokens["bf16"] != tokens["f32"]).any(-1).sum())
+    return {"rows": int(audio.shape[0]),
+            "encoder_mean_abs": float(d_enc.mean()),
+            "encoder_max_abs": float(d_enc.max()),
+            "prefill_logit_mean_abs": float(d_log.mean()),
+            "prefill_argmax_flips": flips, "token_rows_differ": rows}
+
+
+def phase_bf16_contract(model_dir: str, bundle, host_batch, graphs_res):
+    """Phase 20: see the module docstring."""
+    from clearconverse_tpu_torch.models import decode_graph, decoding
+    from clearconverse_tpu_torch.models.convert import load_whisper
+
+    m16, dims, _ = bundle._whisper
+    m32, _ = load_whisper(model_dir, "small.en", "cuda", torch.float32)
+    models = {"bf16": (m16, torch.bfloat16), "f32": (m32, torch.float32)}
+    voiced_toks, voiced_lens = (torch.from_numpy(x).cuda() for x in
+                                decoding.build_prompt_batch(
+                                    [[50257, 50362]] * N_SEG, 2, 50256))
+
+    def voiced(model, mel, cdt):
+        opts = decoding.DecodeOptions(
+            max_tokens=GRAPH_TOKENS, suppress_tokens=tuple(
+                range(50257, dims.n_vocab)), compute_dtype=cdt,
+            cross_kv_bits=8)
+        return decoding.greedy_decode(model, mel, voiced_toks, voiced_lens,
+                                      dims, opts, 2)["tokens"]
+
+    res = {"voiced": bf16_agreement(
+        models, dims, torch.from_numpy(np.asarray(host_batch)).cuda(),
+        voiced)}
+    for B in GRAPH_BATCHES:
+        res[f"noise_b{B}"] = bf16_agreement(
+            models, dims, noise_rows(B, 0),
+            lambda model, mel, cdt, B=B:
+            hot_path_call(model, dims, B, cdt)()["tokens"])
+    beam = {k: beam_hot_call(m, dims, 8, cdt)()["tokens"].cpu()
+            for k, (m, cdt) in models.items()}
+    differ = (beam["bf16"] != beam["f32"]).any(-1)
+    res["beam_8x5"] = {"decode_rows_differ": int(differ.sum()),
+                       "rows_differ": int(differ.reshape(8, -1).any(-1).sum())}
+    identity = {}
+    for k, (m, cdt) in models.items():
+        call = hot_path_call(m, dims, 8, cdt)
+        with eager_route():
+            eager = call()["packed"]
+        identity[k] = bool(torch.equal(eager, call()["packed"]))
+    res["graph_equals_eager_b8"] = identity
+    call = hot_path_call(m16, dims, 32, torch.bfloat16)
+    off = call()["tokens"]
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        on = call()["tokens"]
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+    res["reduced_precision_reduction_rows_differ_b32"] = int(
+        (on != off).any(-1).sum())
+    res["graph_step_ms"] = {
+        B: {"now": graphs_res["timing"][B]["graph"][0]["step_ms"],
+            "bf16_rounded": BF16_ROUNDED_STEP_MS[B]} for B in GRAPH_BATCHES}
+    decode_graph.graphs_for(m32).release()
+    del m32
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        log(f"[bf16] {name}: {r}")
+    bad = [name for name, r in res.items() if isinstance(r, dict)
+           and r.get("encoder_mean_abs", 0.0) >= JAX_BF16_BOUND]
+    if bad:
+        raise SystemExit(f"bf16: encoder drift at or over {JAX_BF16_BOUND} "
+                         f"in {bad}")
+    if not all(identity.values()):
+        raise SystemExit(f"bf16: graph and eager differ at B=8: {identity}")
+    return res
+
+
+# ------------------------------------------- the serving warm-up (phase 21)
+
+def phase_warmup(models: str):
+    """Phase 21: see the module docstring. ``models`` holds the rehearsal
+    checkpoints with the crafted PyanNet (phase 13's)."""
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.models import decode_graph
+    from clearconverse_tpu_torch.pipeline.engine import TranscriptionEngine
+    from clearconverse_tpu_torch.serve import warmup
+
+    runs = {}
+    for order in ("engine_first", "decode_first"):
+        eng = TranscriptionEngine(Config(), TorchConfig(), model_dir=models,
+                                  load_models_immediately=True)
+        graphs = decode_graph.graphs_for(eng.models._whisper[0])
+        engine_keys, segments = set(), []
+        orig = eng.process_files
+
+        def process_files(paths, *a, orig=orig, graphs=graphs,
+                          engine_keys=engine_keys, segments=segments, **kw):
+            before = set(graphs.captured())
+            results = orig(paths, *a, **kw)
+            segments.append(sum(len(r["segments"]) for r in results if r))
+            engine_keys.update(set(graphs.captured()) - before)
+            return results
+        eng.process_files = process_files
+        lines = []
+        t0 = time.perf_counter()
+        if order == "decode_first":
+            warmup.run_warmup(engine_factory=lambda: eng, log=lines.append)
+        else:   # the order before: every engine pass, then the shapes
+            warmup.run_warmup(decode_shapes=False, engine_factory=lambda: eng,
+                              log=lines.append)
+
+            def drive(label, fn):
+                t1 = time.perf_counter()
+                fn()
+                lines.append(f"  {label}: {time.perf_counter() - t1:.1f}s")
+            warmup.warm_decode_shapes(eng, drive)
+        wall = time.perf_counter() - t0
+        stats = warmup.decode_graph_stats(eng.models)
+        lost = engine_keys - set(graphs.captured())
+        drives = [ln for ln in lines if "decode graphs:" not in ln]
+        runs[order] = {"wall_s": wall, "drives": len(drives),
+                       "segments_per_pass": segments,
+                       "engine_keys": len(engine_keys), "lost": len(lost),
+                       "stats": stats}
+        log(f"[warmup] {order}: {len(drives)} drives in {wall:.1f} s, "
+            f"segments per engine pass {segments}; keys first captured by "
+            f"an engine pass {len(engine_keys)}, dropped by the end "
+            f"{len(lost)}; decode graphs {stats}")
+        graphs.release()
+        del eng, graphs, orig
+        torch.cuda.empty_cache()
+    new = runs["decode_first"]
+    if new["stats"]["arena_allocs"] != 1 or new["lost"] or \
+            not min(new["segments_per_pass"]):
+        raise SystemExit(f"warmup: {new}")
+    return runs
 
 
 # ------------------------------------------- --cards N: one card a rank
@@ -2943,6 +3149,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.perf_counter()
     card = nvidia_smi()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3005,7 +3212,13 @@ def main() -> int:
                        host_batch, args.profile)
         beam_graphs = timed("beam_graphs", phase_beam_graphs, rbundle,
                             host_batch)
+        bf16 = timed("bf16_contract", phase_bf16_contract,
+                     os.path.join(rehearsal_dir, "models"), rbundle,
+                     host_batch, graphs)
         del rbundle
+        torch.cuda.empty_cache()
+        warm = timed("warmup", phase_warmup,
+                     os.path.join(rehearsal_dir, "parity_models"))
     finally:
         shutil.rmtree(seeded_dir, ignore_errors=True)
         shutil.rmtree(rehearsal_dir, ignore_errors=True)
@@ -3054,8 +3267,8 @@ def main() -> int:
               "parity": parity_recipe, "train": train,
               "train_parity": train_parity, "beam_language_native": beam,
               "mesh_quantize": mesh, "decode_graphs": graphs,
-              "beam_graphs": beam_graphs,
-              "graph_counts": graph_counts, "phase_s": phase_s,
+              "beam_graphs": beam_graphs, "bf16_contract": bf16,
+              "warmup": warm, "graph_counts": graph_counts, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as fh:

@@ -75,6 +75,8 @@ import time
 import numpy as np
 import torch
 
+from clearconverse_tpu_torch.utils.precision import pin_bf16_reductions
+
 _T0 = time.perf_counter()
 
 # Leave this much headroom before the budget for the final print.
@@ -552,6 +554,7 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    pin_bf16_reductions()
     with tempfile.TemporaryDirectory(prefix="cc_bench_") as tmp:
         return _run(args, device, _card(device), tmp)
 

@@ -14,6 +14,16 @@ layer norms run in f32. Attention uses whisper's (d_head)^-0.25 scaling on
 both q and k. On CUDA with 64-wide heads the encoder's self-attention is the
 hand-written kernel K2 (ops/encoder_attention.py).
 
+Rounding in the decoder follows the JAX package at a 16-bit compute dtype:
+products of compute-dtype operands accumulate in f32, and the attention
+logits and the vocabulary logits stay f32 (``matmul_f32``, the JAX
+``preferred_element_type=jnp.float32``); attention scales are rounded to
+the compute dtype first (``_in_dtype``). The residual stream stays f32: the
+JAX package rounds each residual sum to bf16 in its source, but XLA's
+default excess precision keeps it in f32 inside a fusion, and on a seeded
+tiny model that elided rounding is most of the gap between a bf16 and an
+f32 transcript (ROADMAP F3). At f32 none of this changes a bit.
+
 A tensor-parallel shard (``parallel/sharding.shard_whisper``) carries its
 context as ``model.tp``: the forward passes then attend with the rank's
 local heads and run Megatron's two collectives around the sharded layers;
@@ -186,6 +196,42 @@ def dense(x: torch.Tensor, lin: nn.Module, bias: bool = True) -> torch.Tensor:
         return dense_quantized(x, lin, bias=bias)
     b = None if lin.bias is None or not bias else lin.bias.to(x.dtype)
     return F.linear(x, lin.weight.to(x.dtype), b)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in f32: the products of two compute-dtype operands summed in
+    f32 and never rounded to the compute dtype, as the JAX package's
+    ``preferred_element_type=jnp.float32``. A bf16 product is exact in f32,
+    so the plain version multiplies the operands widened to f32: on the CPU,
+    and wherever autograd must see the product (the train step). On the
+    card cuBLAS takes the 16-bit operands and writes f32 (``out_dtype``);
+    ``b`` is 2-D or has ``a``'s leading axes."""
+    if (a.dtype == torch.float32 or not a.is_cuda
+            or (torch.is_grad_enabled()
+                and (a.requires_grad or b.requires_grad))):
+        return torch.matmul(a.float(), b.float())
+    m, n = a.shape[-2], b.shape[-1]
+    if b.dim() == 2:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.view(*a.shape[:-1], n)
+    y = torch.bmm(a.reshape(-1, m, a.shape[-1]),
+                  b.reshape(-1, b.shape[-2], n), out_dtype=torch.float32)
+    return y.view(*a.shape[:-2], m, n)
+
+
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (f32 or bf16, to nearest even): a
+    scale the JAX package casts to the operand's dtype before it multiplies
+    (``jnp.asarray(s, x.dtype)``). Host arithmetic only, so a captured
+    decode step may call it."""
+    x = np.float32(value)
+    if dtype == torch.bfloat16:
+        bits = int(x.view(np.uint32))
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        x = np.uint32(bits).view(np.float32)
+    elif dtype != torch.float32:
+        raise ValueError(f"compute dtype must be f32 or bf16, got {dtype}")
+    return float(x)
 
 
 def tensor_parallel(model: nn.Module):
@@ -416,17 +462,18 @@ def _cross_attention_head_major(q: torch.Tensor, ckv: Dict[str, Any],
         vt = unpack_codes(ckv["v8t"]).to(cdt)
         vscale = ckv["v8t"]["scale"]                          # [B,H,1,dh]
     else:
-        qs = qh * dh ** -0.5
+        qs = qh * _in_dtype(dh ** -0.5, qh.dtype)
         kt = ckv["kt"].to(cdt)
         vt = ckv["vt"].to(cdt)
         vscale = None
-    logits = torch.matmul(qs, kt).float()
+    logits = matmul_f32(qs, kt)
     if mask is not None:
         logits = logits + mask
     w = torch.softmax(logits, dim=-1).to(cdt)
-    out = torch.matmul(w, vt).float()
-    if vscale is not None:
-        out = out * vscale
+    if vscale is None:
+        out = torch.matmul(w, vt)
+    else:
+        out = matmul_f32(w, vt) * vscale
     return out.to(cdt).transpose(1, 2).reshape(B, Tq, Dm)
 
 
@@ -489,14 +536,17 @@ def decoder_forward(
     ``models/decode_graph.py``). ``self_mask`` must hide future/invalid
     cache slots. A tensor-parallel shard attends with its local heads (its
     caches come from ``init_kv_cache(tp=...)`` and
-    ``precompute_cross_kv``)."""
+    ``precompute_cross_kv``). The residual stream ``x`` is f32 (see the
+    module docstring); each layer norm's output is rounded to the compute
+    dtype for the products it feeds."""
     dec = model.decoder
     cdt = compute_dtype
     tp = tensor_parallel(model)
-    x = dec.tok[tokens].to(cdt) + dec.pos[positions].to(cdt)
+    x = dec.tok[tokens].to(cdt).float() + dec.pos[positions].to(cdt)
     n_head = dims.n_text_head
     dh = dims.n_text_state // n_head
     H = n_head if tp is None else tp.heads(n_head)
+    scale = _in_dtype(dh ** -0.5, cdt)
 
     T_ = tokens.shape[1]
     if isinstance(cache_index, torch.Tensor):
@@ -511,13 +561,13 @@ def decoder_forward(
             buf[(slice(None),) * dim + (sl,)] = val.to(buf.dtype)
 
     for blk, skv, ckv in zip(dec.blocks, self_kv, cross_kv):
-        h = layer_norm(x, blk.attn_ln)
+        h = layer_norm(x, blk.attn_ln).to(cdt)
         q, k_new, v_new = _column(h, [blk.attn.q, blk.attn.k, blk.attn.v],
                                   tp, n_head)
         B_, _, D_ = q.shape
         kn = k_new.view(B_, T_, H, dh).permute(0, 2, 3, 1)   # [B,H,dh,T]
         vn = v_new.view(B_, T_, H, dh).permute(0, 2, 1, 3)   # [B,H,T,dh]
-        qh = q.view(B_, T_, H, dh).transpose(1, 2) * dh ** -0.5
+        qh = q.view(B_, T_, H, dh).transpose(1, 2) * scale
         if "kq" in skv:
             kq_n, ks_n = _quant_rows(kn, dim=2)
             vq_n, vs_n = _quant_rows(vn, dim=3)
@@ -525,7 +575,7 @@ def decoder_forward(
             write(skv["ks"], 3, ks_n)
             write(skv["vq"], 2, vq_n)
             write(skv["vs"], 2, vs_n)
-            logits = torch.matmul(qh, skv["kq"].to(cdt)).float()
+            logits = matmul_f32(qh, skv["kq"].to(cdt))
             logits = logits * skv["ks"] + self_mask
             w = torch.softmax(logits, dim=-1)
             w = (w * skv["vs"].transpose(-1, -2)).to(cdt)
@@ -533,7 +583,7 @@ def decoder_forward(
         elif "kt" in skv:
             write(skv["kt"], 3, kn)
             write(skv["vt"], 2, vn)
-            logits = torch.matmul(qh, skv["kt"].to(cdt)).float() + self_mask
+            logits = matmul_f32(qh, skv["kt"].to(cdt)) + self_mask
             w = torch.softmax(logits, dim=-1).to(cdt)
             o = torch.matmul(w, skv["vt"].to(cdt))
         else:
@@ -542,12 +592,12 @@ def decoder_forward(
         h = o.to(cdt).transpose(1, 2).reshape(B_, T_, D_)
         x = x + _row(h, blk.attn.out, tp, n_head)
 
-        h = layer_norm(x, blk.cross_ln)
+        h = layer_norm(x, blk.cross_ln).to(cdt)
         q, = _column(h, [blk.cross.q], tp, n_head)
         h = _cross_attention_head_major(q, ckv, H, cross_mask, cdt)
         x = x + _row(h, blk.cross.out, tp, n_head)
-        x = x + _mlp(layer_norm(x, blk.mlp_ln), blk.mlp, tp)
+        x = x + _mlp(layer_norm(x, blk.mlp_ln).to(cdt), blk.mlp, tp)
 
-    x = layer_norm(x, dec.ln)
-    logits = torch.matmul(x.to(cdt), dec.tok.to(cdt).T).float()
+    x = layer_norm(x, dec.ln).to(cdt)
+    logits = matmul_f32(x, dec.tok.to(cdt).T)
     return logits, self_kv

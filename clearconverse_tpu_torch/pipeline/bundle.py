@@ -41,6 +41,7 @@ from clearconverse_tpu_torch.config import Config, TorchConfig
 from clearconverse_tpu_torch.models.whisper import tensor_parallel
 from clearconverse_tpu_torch.pipeline.cancel import ProcessingCancelled
 from clearconverse_tpu_torch.utils.errors import is_fatal
+from clearconverse_tpu_torch.utils.precision import pin_bf16_reductions
 from clearconverse_tpu_torch.utils.tracing import StageTimer
 
 logger = logging.getLogger(__name__)
@@ -187,6 +188,7 @@ class ModelBundle:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ModelBundle: no CUDA device is available; "
                                "pass device='cpu' to run on the CPU")
+        pin_bf16_reductions()
         self._loaded = False
         # Where the weights came from on the last load: "checkpoint" or
         # "random_init".

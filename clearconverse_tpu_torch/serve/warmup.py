@@ -7,24 +7,26 @@ allocator growing its pools, and, on the card, the capture of the decode
 token loop's CUDA graph for every static key (models/decode_graph.py: one
 graph per row bucket × encoder window × prompt bucket × options, the
 counterpart of the JAX package's warm-up compiling its decode programs).
-This CLI drives the real engine (the factory the serve app uses) over
-synthetic conversations, then every decode row bucket, so those costs land
+This CLI drives every decode row bucket, then the real engine (the factory
+the serve app uses) over synthetic conversations, so those costs land
 before traffic:
 
     python -m clearconverse_tpu_torch.serve.warmup --durations 30,60 --files 1,8
 
-Two drive kinds:
-  * engine passes — one ``process_files`` per (file count, duration):
-    gate, segmentation, diarization, embeddings, profiles, overlap
-    separation and the decode of every segment bucket the conversation
-    produces;
+Two drive kinds, in this order:
   * decode shapes — ``warm_decode_shapes``: transcribe_long_batch and
     transcribe_batch at every power-of-two row bucket × duration bucket,
     store-backed and from host arrays. On the card each drive captures the
     decode graph of its key; the largest bucket goes first, so the graphs'
     shared arena is sized once and no later drive replaces it. With
     ``beam_size > 1`` and a temperature ladder whose first rung is 0, each
-    drive's first rung is beam search, so its beam keys are captured too.
+    drive's first rung is beam search, so its beam keys are captured too;
+  * engine passes — one ``process_files`` per (file count, duration):
+    gate, segmentation, diarization, embeddings, profiles, overlap
+    separation and the decode of every segment bucket the conversation
+    produces. They come second: a key only they capture (a short bucket
+    at another prompt length) would be dropped if a later decode-shape
+    drive grew the arena.
 """
 
 from __future__ import annotations
@@ -81,11 +83,9 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
     store-backed (diarized segments of the original audio) and from host
     arrays (separated overlap clips), plus p64 prompts at the row
     extremes, each from the largest down (the first drive sizes the decode
-    graphs' arena). Returns the decode graphs' counts on the card
-    (captures, capture_s, replays, ..., ``graphs``, ``beam_graphs``,
-    ``arena_gb``), None
-    elsewhere. A bundle that is not the port's ModelBundle (the dev
-    backend) is skipped."""
+    graphs' arena). Returns ``decode_graph_stats`` of the bundle. A
+    bundle that is not the port's ModelBundle (the dev backend) is
+    skipped."""
     from clearconverse_tpu_torch.pipeline.bundle import (
         ModelBundle, StoreBatch, _row_bucket)
     from clearconverse_tpu_torch.pipeline.dev_backend import SR
@@ -144,7 +144,18 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
               lambda sb=sb, k=n:
               bundle.transcribe_batch(sb, [prompts["p64"]] * k,
                                       temperature=temp))
-    if bundle.device.type != "cuda" or bundle._whisper is None:
+    return decode_graph_stats(bundle)
+
+
+def decode_graph_stats(bundle) -> Optional[dict]:
+    """The decode graphs' counts of ``bundle``'s Whisper on the card
+    (captures, capture_s, replays, arena_allocs, ..., ``graphs``,
+    ``beam_graphs``, ``arena_gb``); None elsewhere, and for a bundle that
+    is not the port's ModelBundle."""
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+
+    if (not isinstance(bundle, ModelBundle) or bundle.device.type != "cuda"
+            or bundle._whisper is None):
         return None
     from clearconverse_tpu_torch.models.decode_graph import graphs_for
     graphs = graphs_for(bundle._whisper[0])
@@ -159,8 +170,11 @@ def run_warmup(durations=(30, 60), file_counts=(1, 8),
                decode_shapes: bool = True,
                engine_factory: Optional[Callable] = None,
                log: Callable[[str], None] = print) -> List[dict]:
-    """Drive every standard shape; returns one entry per drive with its
-    wall-clock seconds (the first drive of a shape carries the set-up)."""
+    """Drive every standard shape, the decode shapes first; returns one
+    entry per drive with its wall-clock seconds (the first drive of a shape
+    carries the set-up). On the card the last line logged is the decode
+    graphs' counts after every drive: ``arena_allocs`` 1 means no graph
+    captured on the way was dropped."""
     engine = (engine_factory or _default_engine)()
     from clearconverse_tpu_torch.audio.wav import write_wav
     from clearconverse_tpu_torch.pipeline.dev_backend import SR
@@ -187,6 +201,8 @@ def run_warmup(durations=(30, 60), file_counts=(1, 8),
                     "(random-init models?)")
         return f"  ({segs} segments)"
 
+    if decode_shapes:
+        warm_decode_shapes(engine, drive)
     with tempfile.TemporaryDirectory(prefix="cc_warm_") as tmp:
         for k in file_counts:
             for dur in durations:
@@ -197,10 +213,9 @@ def run_warmup(durations=(30, 60), file_counts=(1, 8),
                     paths.append(p)
                 drive(f"engine files={k} duration={dur}s",
                       lambda paths=paths: engine_pass(paths))
-    if decode_shapes:
-        graphs = warm_decode_shapes(engine, drive)
-        if graphs is not None:
-            log(f"  decode graphs: {graphs}")
+    graphs = decode_graph_stats(getattr(engine, "models", None))
+    if decode_shapes and graphs is not None:
+        log(f"  decode graphs: {graphs}")
     return entries
 
 

@@ -1,4 +1,4 @@
-"""Float32 precision pinning."""
+"""Float32 and bf16 precision pinning."""
 
 from __future__ import annotations
 
@@ -23,3 +23,13 @@ def full_f32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = cd
+
+
+def pin_bf16_reductions() -> None:
+    """Make cuBLAS sum bf16 products in f32 in every GEMM of the process.
+
+    PyTorch lets cuBLAS reduce a bf16 GEMM's partial sums in bf16 by
+    default (``allow_bf16_reduced_precision_reduction``); the JAX package
+    accumulates every product in f32 (``preferred_element_type``). The
+    bundle and the bench turn it off for the process."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

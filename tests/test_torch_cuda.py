@@ -836,6 +836,72 @@ def test_beam_and_greedy_keys_share_the_arena(cuda, monkeypatch):
     assert graphs.stats["replays"] > 0
 
 
+def _warm_engine(dev):
+    """An engine for the warm-up on ``dev``: the 2-layer bf16 Whisper of
+    the graph tests, seeded ECAPA, the crafted PyanNet (it finds the
+    synthetic conversations' speakers, so the engine passes decode) and a
+    small seeded RE-SepFormer for their overlap; 4-row decode buckets."""
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.ecapa import EcapaDims, init_ecapa
+    from clearconverse_tpu_torch.models.resepformer import (
+        SepformerDims, init_sepformer)
+    from clearconverse_tpu_torch.models.tokenizer import ByteFallbackTokenizer
+    from clearconverse_tpu_torch.models.whisper import WhisperDims
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    from clearconverse_tpu_torch.pipeline.dev_backend import (
+        craft_pyannet_freq_params)
+    from clearconverse_tpu_torch.pipeline.engine import TranscriptionEngine
+
+    cfg = Config(transcription_batch_size=4)
+    tc = TorchConfig(max_decode_tokens=8, diarization_onset=0.35,
+                     diarization_offset=0.25,
+                     diarization_cluster_threshold=0.30)
+    b = ModelBundle(cfg, tc, device=dev)
+    dims = WhisperDims(n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+                       n_text_state=128, n_text_head=2, n_text_layer=2)
+    b._whisper = (init_whisper(dims, seed=6, device=dev,
+                               dtype=torch.bfloat16), dims,
+                  ByteFallbackTokenizer(english=True))
+    b._ecapa, b._ecapa_dims = init_ecapa(EcapaDims(), 2, dev), EcapaDims()
+    b._pyannet, b._pyannet_dims = craft_pyannet_freq_params(device=dev)
+    sep = SepformerDims(enc_channels=16, d_model=16, n_heads=2,
+                        chunk_size=20, n_repeats=1, n_intra_layers=1,
+                        n_inter_layers=1)
+    b._sepformer, b._sepformer_dims = init_sepformer(sep, 3, dev), sep
+    b._loaded = True
+    return TranscriptionEngine(cfg, tc, models=b)
+
+
+def test_warmup_keeps_every_graph_it_captures(cuda):
+    """run_warmup drives the decode shapes before the engine passes, so
+    the graphs' arena is sized once (``arena_allocs`` 1 after the whole
+    warm-up, as its last log line says) and every key an engine pass
+    captured is still captured at the end."""
+    from clearconverse_tpu_torch.models import decode_graph
+    from clearconverse_tpu_torch.serve.warmup import run_warmup
+
+    eng = _warm_engine(cuda)
+    graphs = decode_graph.graphs_for(eng.models._whisper[0])
+    engine_keys, segments = set(), []
+    orig = eng.process_files
+
+    def process_files(paths, *a, **kw):
+        before = set(graphs.captured())
+        results = orig(paths, *a, **kw)
+        segments.append(sum(len(r["segments"]) for r in results if r))
+        engine_keys.update(set(graphs.captured()) - before)
+        return results
+    eng.process_files = process_files
+    lines = []
+    run_warmup(durations=(30,), file_counts=(1, 2),
+               engine_factory=lambda: eng, log=lines.append)
+    assert segments and min(segments) > 0      # the engine passes decoded
+    assert graphs.stats["arena_allocs"] == 1
+    assert engine_keys <= set(graphs.captured())
+    assert "decode graphs:" in lines[-1] and "'arena_allocs': 1" in lines[-1]
+
+
 def test_failing_beam_capture_raises(cuda):
     """A beam step that reads a value back to the host cannot be captured:
     beam search raises (in a child process, as the greedy test) instead of

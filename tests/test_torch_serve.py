@@ -849,6 +849,33 @@ def test_run_warmup_dev_mode(monkeypatch, capsys):
     assert "warmup done: 1 drives" in capsys.readouterr().out
 
 
+def test_run_warmup_drives_decode_shapes_before_engine_passes(monkeypatch):
+    """The decode shapes come first, so their largest bucket sizes the
+    decode graphs' arena before an engine pass captures a key a later
+    growth would drop; the engine passes follow in their order."""
+    import clearconverse_tpu_torch.serve.warmup as wmod
+    order = []
+
+    class _StubEngine:
+        models = None
+
+        def process_files(self, paths):
+            order.append(f"engine {len(paths)}")
+            return [{"segments": [0]} for _ in paths]
+
+    def fake_warm(engine, drive):
+        for n in (4, 1):
+            drive(f"decode rows={n}", lambda n=n: order.append(f"decode {n}"))
+
+    monkeypatch.setattr(wmod, "warm_decode_shapes", fake_warm)
+    entries = wmod.run_warmup(durations=(5,), file_counts=(1, 2),
+                              engine_factory=_StubEngine, log=lambda s: None)
+    assert order == ["decode 4", "decode 1", "engine 1", "engine 2"]
+    assert [e["drive"] for e in entries] == [
+        "decode rows=4", "decode rows=1", "engine files=1 duration=5s",
+        "engine files=2 duration=5s"]
+
+
 def test_warm_decode_shapes_drives_every_row_bucket_like_jax():
     """The same drive labels as the JAX warm-up, largest bucket first (so
     the first drive sizes the decode graphs' arena), store-backed long
