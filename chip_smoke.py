@@ -179,9 +179,14 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 (--profile also traces one transcribe_batch call, one engine pass and one
 overlap pass with torch.profiler: kernel time by name and the card's busy
 share.) On a host with N cards, python3 chip_smoke.py --cards N runs the
-mesh over NCCL with one card a rank instead: entry.dryrun_multichip(N),
-the train CLI at (N/2)x2 under torchrun against 1x1, and one served
-request with overlaps under torchrun on an (N/2)x2 mesh.
+mesh over NCCL with one card a rank instead: entry.dryrun_multichip(N);
+the model-sharded decode as CUDA graphs on small.en at full width at 1xN,
+(N/2)x2 and 1x2 (greedy B = 8, 32, 128, beam 8 and 32 rows x 5, best_of 5
+at t=0.1; graph against eager against 1x1, every rank's tokens and steps
+equal, step ms, replays and peak memory per rank; the warm-up's decode
+shapes led by rank 0 and followed by the others: one arena and the same
+keys on every rank); the train CLI at (N/2)x2 under torchrun against 1x1;
+and one served request with overlaps under torchrun on an (N/2)x2 mesh.
 Without a CUDA card it exits non-zero and prints no result.
 """
 
@@ -2484,24 +2489,52 @@ def noise_rows(B: int, seed: int) -> torch.Tensor:
         (B, WINDOW)).astype(np.float32) * 0.1).cuda()
 
 
-def hot_path_call(model, dims, B: int, cdt):
-    """The bench hot path's decode at B rows (30 s of seeded noise, [SOT]
-    prompts, EOT off so every row decodes GRAPH_TOKENS tokens, int8
-    cross-KV): a function of an optional StageTimer."""
+def hot_path_call(model, dims, rows: int, cdt, kind: str = "greedy",
+                  mesh=None):
+    """The bench hot path's decode on this rank (30 s of seeded noise,
+    [SOT], GRAPH_TOKENS tokens with EOT off or suppressed, int8 cross-KV):
+    ``kind`` "greedy" on ``rows`` rows, "beam" on rows x BEAM_WIDTH beams,
+    "best_of" rows x BEAM_WIDTH samples at t=0.1; on a mesh with data > 1
+    this data rank's block of the rows (sampling noise drawn for the whole
+    batch). A function of an optional StageTimer whose result carries the
+    whole batch's packed rows (gathered over the data axis)."""
     from clearconverse_tpu_torch.audio.mel import log_mel_auto
     from clearconverse_tpu_torch.models import decoding
+    from clearconverse_tpu_torch.parallel.mesh import DATA_AXIS
 
-    audio = noise_rows(B, 0)
+    R = 1 if kind == "greedy" else BEAM_WIDTH
+    audio = noise_rows(rows, {"greedy": 0, "beam": 1, "best_of": 2}[kind])
+    sl, noise = slice(0, rows), (0, 0)
+    if mesh is not None and mesh.data > 1:
+        sl = mesh.rows(rows)
+        noise = (sl.start * R, rows * R)
+    audio = audio[sl]
+    B = audio.shape[0] * R
     toks, lens = decoding.build_prompt_batch([[50257]] * B, 1, 50256)
     toks, lens = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
-    opts = decoding.DecodeOptions(
-        max_tokens=GRAPH_TOKENS, eot=-1, suppress_blank=False,
-        compute_dtype=cdt, cross_kv_bits=8)
+    kw = dict(max_tokens=GRAPH_TOKENS, suppress_blank=False,
+              compute_dtype=cdt, cross_kv_bits=8, replicas=R,
+              noise_rows=noise)
+    if kind == "beam":
+        kw.update(beam=True,
+                  suppress_tokens=(50256,) + tuple(range(50257, 51864)))
+    else:
+        kw.update(eot=-1, temperature=0.1 if kind == "best_of" else 0.0)
+    opts = decoding.DecodeOptions(**kw)
 
     def call(timer=None):
         mel = log_mel_auto(audio, n_mels=dims.n_mels)
-        return decoding.greedy_decode(model, mel, toks, lens, dims, opts, 1,
-                                      timer=timer)
+        if kind == "beam":
+            out = decoding.beam_decode(model, mel, toks, lens, dims, opts, 1,
+                                       timer=timer)
+        else:
+            gen = (torch.Generator(device="cuda").manual_seed(7)
+                   if kind == "best_of" else None)
+            out = decoding.greedy_decode(model, mel, toks, lens, dims, opts,
+                                         1, gen, timer=timer)
+        if mesh is not None and mesh.data > 1:
+            out["packed"] = mesh.all_gather(out["packed"], DATA_AXIS)
+        return out
     return call
 
 
@@ -2634,30 +2667,6 @@ BEAM_WIDTH = 5
 BEAM_ROWS = (8, 32)     # unique rows; decode rows are BEAM_WIDTH times more
 
 
-def beam_hot_call(model, dims, rows: int, cdt):
-    """Beam search at the bench hot path's shapes: ``rows`` 30 s rows of
-    seeded noise × BEAM_WIDTH beams, [SOT] prompts, int8 cross-KV, EOT
-    suppressed so every group runs GRAPH_TOKENS steps: a function of an
-    optional StageTimer."""
-    from clearconverse_tpu_torch.audio.mel import log_mel_auto
-    from clearconverse_tpu_torch.models import decoding
-
-    audio = noise_rows(rows, 1)
-    B = rows * BEAM_WIDTH
-    toks, lens = decoding.build_prompt_batch([[50257]] * B, 1, 50256)
-    toks, lens = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
-    opts = decoding.DecodeOptions(
-        max_tokens=GRAPH_TOKENS, suppress_blank=False,
-        suppress_tokens=(50256,) + tuple(range(50257, 51864)),
-        compute_dtype=cdt, cross_kv_bits=8, replicas=BEAM_WIDTH, beam=True)
-
-    def call(timer=None):
-        mel = log_mel_auto(audio, n_mels=dims.n_mels)
-        return decoding.beam_decode(model, mel, toks, lens, dims, opts, 1,
-                                    timer=timer)
-    return call
-
-
 def kv_reorder_bytes(dims, B: int, slots: int, itemsize: int = 2) -> int:
     """Bytes of one step's in-place self-KV reorder: every layer's K and V
     cache (B rows × width × slots) gathered into a temporary and copied
@@ -2721,7 +2730,7 @@ def phase_beam_graphs(bundle, host_batch):
     timing = {}
     for rows_n in BEAM_ROWS:
         B = rows_n * BEAM_WIDTH
-        call = beam_hot_call(model, dims, rows_n, torch.bfloat16)
+        call = hot_path_call(model, dims, rows_n, torch.bfloat16, "beam")
         graphs.release()
         torch.cuda.empty_cache()
         with eager_route():
@@ -2855,7 +2864,7 @@ def phase_bf16_contract(model_dir: str, bundle, host_batch, graphs_res):
             models, dims, noise_rows(B, 0),
             lambda model, mel, cdt, B=B:
             hot_path_call(model, dims, B, cdt)()["tokens"])
-    beam = {k: beam_hot_call(m, dims, 8, cdt)()["tokens"].cpu()
+    beam = {k: hot_path_call(m, dims, 8, cdt, "beam")()["tokens"].cpu()
             for k, (m, cdt) in models.items()}
     differ = (beam["bf16"] != beam["f32"]).any(-1)
     res["beam_8x5"] = {"decode_rows_differ": int(differ.sum()),
@@ -3108,10 +3117,323 @@ def cards_serve(n: int, tmp: str):
             "identical": same}
 
 
+# ------------------------------------ model-sharded decode graphs (cards)
+
+CARDS_GREEDY = GRAPH_BATCHES            # unique rows of the greedy calls
+CARDS_BEAM = BEAM_ROWS                  # unique rows x BEAM_WIDTH beams
+CARDS_BEST_OF = 8                       # rows x BEAM_WIDTH samples, t=0.1
+CARDS_WARM_TOKENS = 32                  # the follower warm-up's decode length
+
+
+def cards_meshes(n: int):
+    """The model-sharded meshes of ``--cards n`` as (label, data, model,
+    rows split over data): 1 x n, (n/2) x 2, and 1 x 2 for the timing
+    beside 1 x n, run as the (n/2) x 2 mesh whose data rows each decode
+    the whole batch (n/2 meshes of 1 x 2 side by side, so no rank idles)."""
+    out = {f"1x{n}": (1, n, True), f"{n // 2}x2": (n // 2, 2, True)}
+    out.setdefault("1x2", (n // 2, 2, False))
+    return [(label, *spec) for label, spec in out.items()]
+
+
+def agree_us(shard, reps: int = 64) -> float:
+    """Device microseconds of one stop agreement (decoding._agree: the
+    chunk's all-reduce of the stop pair over the model axis), from a CUDA
+    graph of ``reps`` of them replayed ten times."""
+    from clearconverse_tpu_torch.models import decoding
+    ctl = torch.zeros(2, dtype=torch.long, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        decoding._agree(ctl, shard)
+    torch.cuda.current_stream().wait_stream(stream)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            decoding._agree(ctl, shard)
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (10 * reps) * 1e3
+
+
+def _record_pair(call, graphs):
+    """Eager, then the capturing graph call, then eager and graph again,
+    each with a synchronising StageTimer: the records and the four
+    results."""
+    from clearconverse_tpu_torch.utils.tracing import StageTimer
+    recs, outs = {}, {}
+    graphs.release()
+    torch.cuda.empty_cache()
+    for label in ("eager1", "capture", "graph1", "eager2", "graph2"):
+        with eager_route() if label.startswith("eager") \
+                else contextlib.nullcontext():
+            outs[label], recs[label] = graph_call_record(
+                call, graphs, StageTimer(sync=True))
+    return recs, outs
+
+
+def _tokens(out) -> np.ndarray:
+    """The packed result on the host: tokens, length, then sum_logprob and
+    no_speech_prob bitcast (decoding._finalize_decode)."""
+    return out["packed"].cpu().numpy()
+
+
+def cards_decode_rank(devices):
+    """One rank of the model-sharded decode phase: small.en at full width
+    (seeded), whole (1x1, graph route) and as this rank's shard on each of
+    cards_meshes(n). f32 t=0: greedy and beam, graph against eager against
+    1x1; bf16: greedy B = 8 / 32 / 128 and beam 8 and 32 rows x 5, eager
+    and graph in turns (step ms, replays, captures, peak memory); best_of 5
+    at t=0.1; then a ModelBundle at 1 x n whose rank 0 leads the warm-up's
+    decode shapes and the others follow. Rank 0 returns every rank's
+    records."""
+    import torch.distributed as dist
+    from types import SimpleNamespace
+
+    from clearconverse_tpu_torch.config import Config, TorchConfig
+    from clearconverse_tpu_torch.models import decode_graph
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.tokenizer import ByteFallbackTokenizer
+    from clearconverse_tpu_torch.models.whisper import (
+        model_dims, tensor_parallel)
+    from clearconverse_tpu_torch.parallel.mesh import build_mesh
+    from clearconverse_tpu_torch.parallel.serve import follow, lead
+    from clearconverse_tpu_torch.parallel.sharding import shard_whisper
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    from clearconverse_tpu_torch.serve.warmup import (
+        decode_graph_stats, warm_decode_shapes)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    n, rank = dist.get_world_size(), dist.get_rank()
+    dims = model_dims("small.en")
+    whole = {cdt: init_whisper(dims, 0, "cuda", cdt)
+             for cdt in (torch.float32, torch.bfloat16)}
+    f32_calls = [("greedy", B) for B in CARDS_GREEDY] + \
+        [("beam", CARDS_BEAM[0])]
+    single = {}
+    for kind, rows in f32_calls:
+        out = hot_path_call(whole[torch.float32], dims, rows, torch.float32,
+                            kind)()
+        single[(kind, rows)] = _tokens(out)
+    decode_graph.graphs_for(whole[torch.float32]).release()
+    torch.cuda.empty_cache()
+
+    rec = {"rank": rank, "meshes": {}}
+    for name, data, model, split in cards_meshes(n):
+        mesh = build_mesh(data, model, devices)
+        rows_mesh = mesh if split else None
+        res = {"f32": {}, "bf16": {}, "heads": None}
+        shard = shard_whisper(whole[torch.float32], mesh)
+        res["heads"] = tensor_parallel(shard).heads(dims.n_text_head)
+        graphs = decode_graph.graphs_for(shard)
+        for kind, rows in f32_calls:
+            call = hot_path_call(shard, dims, rows, torch.float32, kind,
+                                 rows_mesh)
+            graphs.release()
+            with eager_route():
+                eager = _tokens(call())
+            before = dict(graphs.stats)
+            out = call()
+            got, ref = _tokens(out), single[(kind, rows)]
+            cols = GRAPH_TOKENS + 1             # tokens and the length
+            slp = [x[:, cols].copy().view(np.float32) for x in (got, ref)]
+            res["f32"][f"{kind}{rows}"] = {
+                "graph_eq_eager": bool(np.array_equal(got, eager)),
+                "graph_eq_1x1": bool(np.array_equal(got[:, :cols],
+                                                    ref[:, :cols])),
+                "sum_logprob_rel_1x1": float(np.max(
+                    np.abs(slp[0] - slp[1]) / np.abs(slp[1]))),
+                "tokens": got, "steps": out["steps"],
+                "replays": graphs.stats["replays"] - before["replays"],
+                "captures": graphs.stats["captures"] - before["captures"]}
+        graphs.release()
+        del shard, graphs
+        torch.cuda.empty_cache()
+
+        shard = shard_whisper(whole[torch.bfloat16], mesh)
+        graphs = decode_graph.graphs_for(shard)
+        bf16_calls = [("greedy", B) for B in CARDS_GREEDY] + \
+            [("beam", r) for r in CARDS_BEAM]
+        for kind, rows in bf16_calls:
+            call = hot_path_call(shard, dims, rows, torch.bfloat16, kind,
+                                 rows_mesh)
+            recs, outs = _record_pair(call, graphs)
+            res["bf16"][f"{kind}{rows}"] = {
+                **recs, "arena_gb": graphs.arena_bytes / 1e9,
+                "graph_eq_eager": all(
+                    np.array_equal(_tokens(outs[g]), _tokens(outs[e]))
+                    for g in ("capture", "graph1", "graph2")
+                    for e in ("eager1", "eager2")),
+                "tokens": _tokens(outs["graph1"]),
+                "peak_vs_eager": recs["graph1"]["peak_mem_gb"]
+                / recs["eager1"]["peak_mem_gb"]}
+        call = hot_path_call(shard, dims, CARDS_BEST_OF, torch.bfloat16,
+                             "best_of", rows_mesh)
+        graphs.release()
+        with eager_route():
+            eager = _tokens(call())
+        before = dict(graphs.stats)
+        outs = [call(), call()]
+        res["best_of"] = {
+            "tokens": _tokens(outs[1]), "steps": outs[1]["steps"],
+            "seeded": bool(np.array_equal(_tokens(outs[0]),
+                                          _tokens(outs[1]))),
+            "graph_eq_eager": bool(np.array_equal(_tokens(outs[1]), eager)),
+            "replays": graphs.stats["replays"] - before["replays"],
+            "valid": bool(((outs[1]["tokens"] >= 0)
+                           & (outs[1]["tokens"] < dims.n_vocab)).all())}
+        if name == f"1x{n}":
+            res["agree_us"] = agree_us(shard)
+        res["stats"] = dict(graphs.stats)
+        graphs.release()
+        del shard, graphs
+        torch.cuda.empty_cache()
+        rec["meshes"][name] = res
+
+    # The warm-up's decode shapes on a 1 x n bundle: rank 0 leads, the
+    # others follow its calls, so every rank captures the same keys.
+    bundle = ModelBundle(Config(), TorchConfig(
+        max_decode_tokens=CARDS_WARM_TOKENS, model_axis=n), device="cuda")
+    bundle._whisper = (byte_text(init_whisper(dims, 0, "cuda",
+                                              torch.bfloat16)),
+                       dims, ByteFallbackTokenizer())
+    bundle._loaded = True
+    t0 = time.perf_counter()
+    if rank == 0:
+        ctl = lead(bundle)
+        try:
+            warm_decode_shapes(SimpleNamespace(
+                models=bundle, config=Config(transcription_batch_size=8),
+                torch_config=bundle.torch_config), lambda label, fn: fn())
+        finally:
+            ctl.close()
+    else:
+        follow(bundle)
+    torch.cuda.synchronize()
+    stats = decode_graph_stats(bundle)
+    rec["warmup"] = {
+        "seconds": time.perf_counter() - t0,
+        "stats": stats,
+        "keys": [repr(k) for k in decode_graph.graphs_for(
+            bundle._whisper[0]).captured()]}
+    ranks = [None] * n
+    dist.all_gather_object(ranks, rec)
+    return ranks
+
+
+def cards_decode(n: int):
+    """The model-sharded decode on n NCCL ranks (cards_decode_rank): fails
+    unless, at f32 t=0, every rank's graph result equals its eager route's
+    bit for bit and its tokens and lengths equal 1x1's (sum_logprob, summed
+    in another order across the shards, is reported against 1x1); in bf16
+    graph equals eager; every rank of a mesh gives the same tokens and
+    steps and replays graphs; and the follower warm-up ends with one arena
+    and the same captured keys on every rank."""
+    from clearconverse_tpu_torch.parallel.launch import run_group
+
+    t0 = time.perf_counter()
+    ranks = run_group(cards_decode_rank, [f"cuda:{i}" for i in range(n)],
+                      timeout_s=900)
+    wall = time.perf_counter() - t0
+    report = {"wall_s": wall, "meshes": {}, "warmup": []}
+    bad = []
+    for name, _, _, _ in cards_meshes(n):
+        per = [r["meshes"][name] for r in ranks]
+        summary = {"heads": per[0]["heads"], "f32": {}, "bf16": {},
+                   "agree_us": [p.get("agree_us") for p in per]}
+        for key in per[0]["f32"]:
+            recs = [p["f32"][key] for p in per]
+            ok = all(x["graph_eq_eager"] and x["graph_eq_1x1"]
+                     and x["replays"] > 0 for x in recs)
+            same = all(np.array_equal(x["tokens"], recs[0]["tokens"])
+                       and x["steps"] == recs[0]["steps"] for x in recs)
+            summary["f32"][key] = {
+                "ok": ok, "ranks_equal": same, "steps": recs[0]["steps"],
+                "graph_eq_eager": [x["graph_eq_eager"] for x in recs],
+                "graph_eq_1x1": [x["graph_eq_1x1"] for x in recs],
+                "sum_logprob_rel_1x1": recs[0]["sum_logprob_rel_1x1"],
+                "replays": [x["replays"] for x in recs]}
+            if not (ok and same):
+                bad.append(f"{name} f32 {key}")
+        for key in per[0]["bf16"]:
+            recs = [p["bf16"][key] for p in per]
+            same = all(np.array_equal(x["tokens"], recs[0]["tokens"])
+                       and x["graph1"]["steps"] == recs[0]["graph1"]["steps"]
+                       for x in recs)
+            ok = all(x["graph_eq_eager"] and x["graph1"]["replays"] > 0
+                     and x["capture"]["captures"] == 1 for x in recs)
+            summary["bf16"][key] = {
+                "ok": ok, "ranks_equal": same,
+                "step_ms_eager": [[x["eager1"]["step_ms"],
+                                   x["eager2"]["step_ms"]] for x in recs],
+                "step_ms_graph": [[x["graph1"]["step_ms"],
+                                   x["graph2"]["step_ms"]] for x in recs],
+                "wall_s": [[x["eager2"]["wall_s"], x["graph2"]["wall_s"]]
+                           for x in recs],
+                "capture_s": [x["capture"]["capture_s"] for x in recs],
+                "replays": [x["graph1"]["replays"] for x in recs],
+                "flag_reads": [x["graph1"]["flag_reads"] for x in recs],
+                "peak_gb": [[x["eager1"]["peak_mem_gb"],
+                             x["graph1"]["peak_mem_gb"]] for x in recs],
+                "peak_vs_eager": [x["peak_vs_eager"] for x in recs],
+                "arena_gb": [x["arena_gb"] for x in recs]}
+            if not (ok and same):
+                bad.append(f"{name} bf16 {key}")
+            s = summary["bf16"][key]
+            log(f"[cards] {name} bf16 {key}: step ms eager "
+                f"{s['step_ms_eager'][0][0]:.3f}/{s['step_ms_eager'][0][1]:.3f}"
+                f", graph {s['step_ms_graph'][0][0]:.3f}/"
+                f"{s['step_ms_graph'][0][1]:.3f} (rank 0); replays "
+                f"{s['replays']}; peak GB eager/graph per rank "
+                f"{[[round(a, 3), round(b, 3)] for a, b in s['peak_gb']]}; "
+                f"graph == eager {ok}, ranks equal {same}")
+        recs = [p["best_of"] for p in per]
+        same = all(np.array_equal(x["tokens"], recs[0]["tokens"])
+                   and x["steps"] == recs[0]["steps"] for x in recs)
+        ok = all(x["seeded"] and x["valid"] and x["replays"] > 0
+                 for x in recs)
+        summary["best_of"] = {"ok": ok, "ranks_equal": same,
+                              "graph_eq_eager": [x["graph_eq_eager"]
+                                                 for x in recs],
+                              "replays": [x["replays"] for x in recs]}
+        if not (ok and same):
+            bad.append(f"{name} best_of")
+        summary["stats"] = [p["stats"] for p in per]
+        log(f"[cards] {name} ({summary['heads']} heads a rank): f32 t=0 "
+            f"{summary['f32']}; best_of 5 t=0.1 {summary['best_of']}; "
+            f"stop agreement {summary['agree_us']} us")
+        report["meshes"][name] = summary
+    warm = [r["warmup"] for r in ranks]
+    same_keys = all(w["keys"] == warm[0]["keys"] for w in warm)
+    allocs = [w["stats"]["arena_allocs"] for w in warm]
+    replays = [w["stats"]["replays"] for w in warm]
+    report["warmup"] = {"seconds": [w["seconds"] for w in warm],
+                        "arena_allocs": allocs, "replays": replays,
+                        "graphs": [w["stats"]["graphs"] for w in warm],
+                        "same_keys": same_keys}
+    log(f"[cards] follower warm-up of the decode shapes at 1x{n}: "
+        f"{report['warmup']}")
+    if not same_keys or allocs != [1] * n or min(replays) == 0:
+        bad.append("warm-up")
+    log(f"[cards] model-sharded decode phase: {wall:.1f} s")
+    if bad:
+        raise SystemExit(f"cards: the model-sharded decode failed in {bad}")
+    return report
+
+
 def main_cards(n: int) -> int:
     """``--cards N``: the mesh over NCCL with one card a rank, against 1x1:
-    entry.dryrun_multichip(N), the train CLI under torchrun and a served
-    request under torchrun."""
+    entry.dryrun_multichip(N), the model-sharded decode graphs
+    (cards_decode), the train CLI under torchrun and a served request under
+    torchrun."""
     from clearconverse_tpu_torch import entry
     if torch.cuda.device_count() < n or n < 2 or n % 2:
         raise SystemExit(f"--cards {n} needs an even count >= 2 of cards; "
@@ -3123,14 +3445,17 @@ def main_cards(n: int) -> int:
     dry_s = time.perf_counter() - t0
     tmp = tempfile.mkdtemp(prefix="cc_cards_")
     try:
+        decode = cards_decode(n)
         train = cards_train(n, tmp)
         serve = cards_serve(n, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     with open("chiprun_out/chip_smoke_cards.json", "w") as fh:
-        json.dump({"dryrun": {"mesh": dry["mesh"], "devices": dry["devices"],
+        json.dump({"card": nvidia_smi(),
+                   "dryrun": {"mesh": dry["mesh"], "devices": dry["devices"],
                               "loss": dry["loss"], "seconds": dry_s},
-                   "train": train, "serve": serve}, fh, indent=1)
+                   "decode": decode, "train": train, "serve": serve}, fh,
+                  indent=1, default=str)
     return 0
 
 

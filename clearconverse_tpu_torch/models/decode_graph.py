@@ -32,10 +32,20 @@ key, and replayed until a stop flag says the loop has ended:
   it (``CUDAGraph.register_generator_state``), reseeded on every call from
   the caller's generator's seed, so one seed gives the same tokens.
 
+* **Model-sharded ranks.** Over NCCL (one card a rank) a shard's step
+  holds its all-reduces and all-gathers, and the graph captures them; each
+  chunk ends with one all-reduce of the stop pair over the model axis
+  (``decoding._agree``), so every rank of the axis replays the same chunks
+  and a disagreement raises on all of them (steps -1). Gloo's collectives
+  cannot be captured: such a rank keeps the eager step.
+
 A capture or a replay that fails raises: nothing falls back to the eager
 loop. The first call of a key runs its first ``K`` steps eagerly on the
-capture stream (which also warms cuBLAS and the allocator for that stream)
-and then captures.
+capture stream (which also warms cuBLAS and the allocator for that stream,
+and runs every collective of the chunk before the capture, so each NCCL
+communicator it uses exists first) and then captures. The capture is
+``thread_local``: ProcessGroupNCCL's watchdog thread queries events while
+the main thread captures, which the global mode refuses.
 """
 
 from __future__ import annotations
@@ -190,7 +200,9 @@ def drive(launch: Callable[[int], None], ctl: torch.Tensor, n_chunks: int,
     """Launch chunk 0, 1, ... (at most ``n_chunks``), keeping two in flight:
     chunk i's stop flag is read while chunk i + 1 runs. Returns (loop steps
     taken, chunks launched, flags read). ``ctl`` is the loop's [steps,
-    stop] pair; a chunk past the stop runs as overrun and changes nothing."""
+    stop] pair; a chunk past the stop runs as overrun and changes nothing.
+    Steps -1 say that the ranks of a model axis disagree (``decoding._agree``):
+    every rank reads it at the same flag and raises."""
     pending: collections.deque = collections.deque()
     launched = reads = 0
     while True:
@@ -204,6 +216,10 @@ def drive(launch: Callable[[int], None], ctl: torch.Tensor, n_chunks: int,
                                f"chunks of {K} steps")
         steps, stop = flags.read(pending.popleft())
         reads += 1
+        if steps < 0:
+            raise RuntimeError(
+                "decode loop: the model axis's ranks disagree on the stop "
+                "flag (their tokens differ)")
         if stop:
             return steps, launched, reads
 
@@ -284,8 +300,6 @@ class DecodeGraphs:
         replays of its graph, captured first when ``e`` has none. Returns
         the loop steps taken."""
         if self._flags is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
             self._flags = StopFlags(self.device)
         replays = [0]
 
@@ -313,6 +327,9 @@ class DecodeGraphs:
                 else contextlib.nullcontext())
         with span:
             t0 = time.perf_counter()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+                self._stream = torch.cuda.Stream(self.device)
             cur = torch.cuda.current_stream(self.device)
             self._stream.wait_stream(cur)
             with torch.cuda.stream(self._stream):

@@ -6,12 +6,14 @@ log-mel (kernel K1 on CUDA), the encoder (kernel K2 on CUDA), head-major
 cross-KV and prompt prefill run eagerly on the device; the token loop is
 one step function, ``_greedy_step`` (``_beam_step`` for beam search), the
 counterpart of the JAX loop's ``body``: every field of its state is a
-device tensor, so a step never waits for the host. On a CUDA tensor (and a
-whole, unsharded model) the loop runs as CUDA graphs of ``decode_graph.K``
-consecutive steps, replayed until a stop flag read a replay late says the
-loop has ended (``models/decode_graph.py``); on the CPU, and on a
-model-sharded mesh rank, the same step runs eagerly and the host reads the
-stop flag after each step. Variable-length prompts keep exact
+device tensor, so a step never waits for the host. On a CUDA tensor the
+loop runs as CUDA graphs of ``decode_graph.K`` consecutive steps, replayed
+until a stop flag read a replay late says the loop has ended
+(``models/decode_graph.py``), on a whole model and on a model-sharded mesh
+rank over NCCL alike (the JAX package's model-sharded decode is the same
+jitted program, its collectives inserted by XLA); on the CPU, and on a
+model-sharded rank over gloo, the same step runs eagerly and the host reads
+the stop flag after each step. Variable-length prompts keep exact
 single-example numerics by giving real tokens their absolute positions and
 masking padded cache slots forever.
 
@@ -36,6 +38,7 @@ from clearconverse_tpu_torch.models.whisper import (
     Whisper, WhisperDims, decoder_forward, init_kv_cache, precompute_cross_kv,
     tensor_parallel, unpack_codes, whisper_encode,
 )
+from clearconverse_tpu_torch.parallel.mesh import MODEL_AXIS
 from clearconverse_tpu_torch.utils.tracing import StageTimer
 
 logger = logging.getLogger(__name__)
@@ -460,10 +463,30 @@ def _greedy_step(s: _LoopState, c: _LoopInputs) -> None:
     s.ctl[1].copy_(s.finished.all() | (step >= opts.max_tokens))
 
 
+def _agree(ctl: torch.Tensor, model) -> None:
+    """On a model-sharded rank, the control pair [steps, stop] after a
+    chunk made one value on every rank of the model axis: its max over the
+    axis, or [-1, 1] where the ranks' pairs differ (``decode_graph.drive``
+    raises on -1). The ranks compute equal pairs (``_graph_route``), so
+    this changes no value. It is one collective a chunk, captured with it,
+    and it turns a disagreement into an error on every rank at the same
+    flag read, where a rank that stopped alone would leave the others
+    replaying a chunk whose collectives wait for ever."""
+    tp = tensor_parallel(model)
+    if tp is None:
+        return
+    v = torch.cat([ctl, -ctl])
+    tp.mesh.all_reduce(v, MODEL_AXIS, op="max")
+    differ = (v[:2] != -v[2:]).any()
+    ctl[0].copy_(torch.where(differ, -1, v[0]))
+    ctl[1].copy_(torch.where(differ, 1, v[1]))
+
+
 def _greedy_steps(s: _LoopState, c: _LoopInputs) -> None:
     """``decode_graph.K`` steps: what one decode graph captures."""
     for _ in range(decode_graph.K):
         _greedy_step(s, c)
+    _agree(s.ctl, c.model)
 
 
 def _loop_eager(s, c: _LoopInputs, step=_greedy_step) -> int:
@@ -494,18 +517,32 @@ def _keyed_loop(bufs: decode_graph.GraphBuffers, c: _LoopInputs,
 
 @functools.lru_cache(maxsize=None)
 def _log_eager_route() -> None:
-    logger.info("decode: a model-sharded rank runs the token loop eagerly "
-                "(its step holds collectives, which CUDA graphs do not "
-                "capture over gloo)")
+    logger.info("decode: a model-sharded rank over gloo runs the token loop "
+                "eagerly (its step holds collectives, and a CUDA graph "
+                "captures NCCL's, not gloo's)")
 
 
 def _graph_route(model: Whisper, device: torch.device) -> bool:
     """True when the token loop runs as CUDA graphs: every CUDA call on a
-    whole model (1×1 and data-only meshes). A model-sharded rank keeps the
-    eager step, logged once."""
+    whole model (1×1 and data-only meshes), and on a model-sharded rank
+    whose mesh runs over NCCL (one card a rank). A model-sharded rank over
+    gloo (ranks sharing a card) keeps the eager step, logged once.
+
+    A sharded rank's graph holds the step's collectives, so every rank of
+    the model axis must replay the same chunks: each decides to stop from
+    values that are bitwise equal on all of them. The residual stream
+    starts from replicated embeddings; each sharded product's partial sums
+    meet in one all-reduce, whose result is the same bits on every rank
+    (each element is reduced once and copied to the others, over NCCL and
+    gloo alike); layer norms, biases, the vocabulary projection and the
+    pick are replicated work on equal inputs; at t > 0 every rank's
+    generator is reseeded from the caller's seed, which the ranks share (a
+    serving follower replays rank 0's calls in order). ``_agree`` makes the
+    stop flag one value all the same, and raises on a difference."""
     if device.type != "cuda":
         return False
-    if tensor_parallel(model) is not None:
+    tp = tensor_parallel(model)
+    if tp is not None and tp.mesh.backend != "nccl":
         _log_eager_route()
         return False
     return True
@@ -519,12 +556,18 @@ def _graph_buffers(graphs: decode_graph.DecodeGraphs, model, mel, B: int,
     "t > 0" of the temperature and no suppression set (both are device
     inputs of the graph). ``opts.beam`` and ``opts.replicas`` keep a beam
     key apart from a greedy or best_of one of the same rows; the arena
-    holds ``mel`` rows (B / replicas) of cross-KV and B of self-KV."""
+    holds ``mel`` rows (B / replicas) of cross-KV and B of self-KV, with
+    the heads this rank attends with (a shard's ``tp.heads``, as
+    ``precompute_cross_kv`` and ``init_kv_cache(tp=)`` give them). A
+    shard's key is its own: its graphs live with the shard module
+    (``decode_graph.graphs_for``) and ``weights_key`` reads its tensors."""
     key = (B, mel.shape[0], mel.shape[-1], P, max_len, sampling,
            dataclasses.replace(opts, temperature=float(opts.temperature > 0),
                                suppress_tokens=()))
+    tp = tensor_parallel(model)
+    heads = dims.n_text_head if tp is None else tp.heads(dims.n_text_head)
     layout = decode_graph.Layout(
-        dims.n_text_layer, dims.n_text_head, dims.head_dim,
+        dims.n_text_layer, heads, dims.head_dim,
         opts.compute_dtype, opts.cross_kv_bits != 16, opts.self_kv_bits)
     frames = (mel.shape[-1] - 1) // 2 + 1        # conv2: stride 2, pad 1
     return graphs.buffers(key, layout, mel.shape[0], B, frames,
@@ -554,10 +597,10 @@ def greedy_decode(
     graph is captured) and counts the loop's steps (``token_loop_steps``)
     and, on the graph route, its replays, captures and stop-flag reads.
 
-    On a CUDA tensor and a whole model the token loop runs as CUDA graphs
-    (``_graph_route``, models/decode_graph.py); at t > 0 their generator is
-    reseeded from ``generator.initial_seed()``, and ``generator`` itself is
-    not advanced."""
+    On a CUDA tensor the token loop runs as CUDA graphs (``_graph_route``:
+    not on a model-sharded rank over gloo; models/decode_graph.py); at
+    t > 0 their generator is reseeded from ``generator.initial_seed()``,
+    and ``generator`` itself is not advanced."""
     prompt_tokens = prompt_tokens.long()
     prompt_lens = prompt_lens.long()
     B, P = prompt_tokens.shape
@@ -781,6 +824,7 @@ def _beam_steps(s: _BeamState, c: _LoopInputs) -> None:
     """``decode_graph.K`` beam steps: what one beam decode graph captures."""
     for _ in range(decode_graph.K):
         _beam_step(s, c)
+    _agree(s.ctl, c.model)
 
 
 def _finish_beam(s: _BeamState, opts: DecodeOptions):
@@ -829,10 +873,9 @@ def beam_decode(
     sequences per row in store order; the caller picks each row's winner by
     sum_logprob / length.
 
-    On a CUDA tensor and a whole model the loop runs as CUDA graphs of
-    ``decode_graph.K`` beam steps, one per static key, as greedy_decode's
-    does; on the CPU and on a model-sharded rank the same step runs
-    eagerly."""
+    On a CUDA tensor the loop runs as CUDA graphs of ``decode_graph.K``
+    beam steps, one per static key, as greedy_decode's does; on the CPU and
+    on a model-sharded rank over gloo the same step runs eagerly."""
     B, P = prompt_tokens.shape
     R = opts.replicas
     if opts.temperature > 0:

@@ -11,6 +11,9 @@ The backend follows from where the ranks run: ``nccl`` when every rank has
 a card of its own, ``gloo`` for CPU ranks and for ranks that share one card
 (NCCL refuses two ranks on one GPU). Gloo reduces and broadcasts CUDA
 tensors itself; an all-gather of a CUDA tensor is staged through the host.
+Only NCCL's collectives can be captured in a CUDA graph, so only a mesh
+with one card a rank decodes through the captured token loop
+(models/decoding._graph_route).
 
 Every collective along the mesh's axes fails after
 ``COLLECTIVE_TIMEOUT_S``, so a rank whose peer failed raises instead of
@@ -34,6 +37,7 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 # Seconds a collective waits for the other ranks before it raises.
 COLLECTIVE_TIMEOUT_S = 120.0
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def local_device_count() -> int:
@@ -122,24 +126,38 @@ class Mesh:
     def size(self, axis: str) -> int:
         return self.shape[axis]
 
-    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
-        """Sum ``t`` in place over ``axis``; returns ``t``."""
+    def all_reduce(self, t: torch.Tensor, axis: str,
+                   op: str = "sum") -> torch.Tensor:
+        """Reduce ``t`` in place over ``axis`` (``op``: "sum" or "max");
+        returns ``t``."""
         if self.size(axis) > 1:
-            dist.all_reduce(t, group=self._groups[axis])
+            dist.all_reduce(t, op=_OPS[op], group=self._groups[axis])
         return t
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0
                    ) -> torch.Tensor:
         """Every rank's ``t`` along ``axis``, concatenated along ``dim`` in
-        axis order (equal shapes on every rank)."""
-        if self.size(axis) == 1:
+        axis order (equal shapes on every rank). The parts land in one
+        output tensor, [ranks, *t.shape]: over NCCL one
+        ``all_gather_into_tensor``, which a CUDA graph captures (no host
+        read, no allocation that depends on the data); gloo gathers into
+        views of it, a CUDA tensor staged through the host."""
+        n = self.size(axis)
+        if n == 1:
             return t
+        group = self._groups[axis]
         staged = self.backend == "gloo" and t.device.type == "cuda"
         src = (t.cpu() if staged else t).contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.size(axis))]
-        dist.all_gather(parts, src, group=self._groups[axis])
-        out = torch.cat(parts, dim=dim)
-        return out.to(t.device) if staged else out
+        parts = src.new_empty((n, *src.shape))
+        if self.backend == "gloo":
+            dist.all_gather(list(parts.unbind(0)), src, group=group)
+        else:
+            dist.all_gather_into_tensor(parts, src, group=group)
+        parts = parts.to(t.device)
+        d = dim % t.dim()
+        shape = list(t.shape)
+        shape[d] *= n
+        return parts.movedim(0, d).reshape(shape)
 
     def rows(self, n: int) -> slice:
         """This data rank's block of ``n`` rows (``n`` divisible by data)."""

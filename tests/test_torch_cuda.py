@@ -3,9 +3,10 @@ version, the wrappers' input checks, a tiny transcription (and an int4
 cross-KV decode) on the card against the same on the CPU, the speaker and
 separation models card vs CPU, a tiny dress-rehearsal round trip on the card,
 the bench's hot-path line, int8 decoder weights card vs CPU, two mesh
-ranks sharing the card, and the token loop as CUDA graphs (greedy,
+ranks sharing the card, two model-sharded ranks with a card each decoding
+through CUDA graphs over NCCL, and the token loop as CUDA graphs (greedy,
 sampling and beam search) against the eager loop. Every test needs a CUDA
-card and skips without one.
+card and skips without one (the NCCL test without two).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without JAX. tests/conftest.py imports JAX, so there run it as:
@@ -589,6 +590,42 @@ def test_two_mesh_ranks_share_the_card(cuda):
     for mesh, (texts, counts) in got.items():
         assert texts == want, mesh
         assert all(k1n > 0 and k2n > 0 for k1n, k2n in counts), (mesh, counts)
+
+
+def test_sharded_decode_graphs_over_nccl(cuda):
+    """Two ranks with a card each over NCCL at 1x2 (one head a rank): a
+    model-sharded rank takes the graph route, and greedy (f32 and bf16),
+    beam and best_of calls replay CUDA graphs on both ranks. At t=0 the
+    graph route gives the eager loop's packed result and steps, in f32 the
+    1x1 tokens too; at t=0.1 one seed gives one result; both ranks decode
+    the same bits."""
+    import torch_mesh_worker
+    from clearconverse_tpu_torch.parallel.launch import run_group
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (one a rank over NCCL)")
+    ranks = run_group(torch_mesh_worker.nccl_sharded_graphs,
+                      ["cuda:0", "cuda:1"], timeout_s=300)
+    for res in ranks:
+        assert res["backend"] == "nccl" and res["route"] is True
+        assert res["heads"] == 1
+        for name, got in res["calls"].items():
+            graph, steps = got["graph"]
+            assert np.array_equal(graph, got["again"][0]), name
+            assert got["again"][1] == steps
+            if name != "best_of":
+                assert np.array_equal(graph, got["eager"][0]), name
+                assert got["eager"][1] == steps, name
+            if name.endswith("f32"):
+                assert np.array_equal(graph[:, :20], got["single"][0][:, :20])
+                assert got["single"][1] == steps, name
+            assert got["stats"]["replays"] > 0, name
+            assert got["stats"]["arena_allocs"] == 1, name
+    for name in ranks[0]["calls"]:
+        assert np.array_equal(ranks[0]["calls"][name]["graph"][0],
+                              ranks[1]["calls"][name]["graph"][0]), name
+        assert ranks[0]["calls"][name]["graph"][1] == \
+            ranks[1]["calls"][name]["graph"][1], name
 
 
 # ------------------------------------------- the token loop as CUDA graphs

@@ -402,3 +402,204 @@ def train_cli(devices, argv):
     """The train CLI on every rank of an existing process group."""
     from clearconverse_tpu_torch.train.__main__ import main
     return main(argv)
+
+
+class _Rerun:
+    """A stand-in for a captured decode graph on the CPU: its replay runs
+    the captured chunk again, eagerly, on the key's fixed buffers."""
+
+    def __init__(self, chunk):
+        self.chunk = chunk
+
+    def replay(self):
+        self.chunk()
+
+
+@contextlib.contextmanager
+def cpu_graph_route():
+    """The decode graph route on the CPU: ``decoding._graph_route`` true
+    and each key's capture a ``_Rerun`` of its chunk. Everything else is
+    the card's route: the key's arena views, its state and inputs refilled
+    per call, chunks of ``decode_graph.K`` steps ending in the model
+    axis's stop agreement, ``decode_graph.drive`` reading the stop flag a
+    chunk late, overrun past the loop's end."""
+    from clearconverse_tpu_torch.models import decode_graph, decoding
+
+    def capture(self, e, chunk, timer):
+        chunk()
+        e.graph = _Rerun(chunk)
+        self.stats["captures"] += 1
+        decode_graph.COUNTS["captures"] += 1
+
+    route, cap = decoding._graph_route, decode_graph.DecodeGraphs._capture
+    decoding._graph_route = lambda model, device: True
+    decode_graph.DecodeGraphs._capture = capture
+    try:
+        yield
+    finally:
+        decoding._graph_route = route
+        decode_graph.DecodeGraphs._capture = cap
+
+
+@contextlib.contextmanager
+def recorded_loops():
+    """Every greedy_decode / beam_decode result of the port: tokens,
+    lengths, sum_logprob and steps (the token positions decoded)."""
+    from clearconverse_tpu_torch.models import decoding
+
+    calls = []
+    inner = {name: getattr(decoding, name)
+             for name in ("greedy_decode", "beam_decode")}
+
+    def wrap(fn):
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls.append({"tokens": out["tokens"].numpy(),
+                          "lengths": out["lengths"].numpy(),
+                          "sum_logprob": out["sum_logprob"].numpy(),
+                          "steps": out["steps"]})
+            return out
+        return recorded
+
+    for name, fn in inner.items():
+        setattr(decoding, name, wrap(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in inner.items():
+            setattr(decoding, name, fn)
+
+
+# The sharded graph route's calls: (name, TorchConfig knobs, temperature).
+GRAPH_CALLS = (("greedy", {}, 0.0),
+               ("beam", {"beam_size": 3}, 0.0),
+               ("best_of", {"best_of": 3}, 0.7))
+GRAPH_TOKENS = 20       # three chunks of decode_graph.K, the last overrun
+
+
+def graph_call(trees, inputs, data, model, knobs, temperature):
+    """One transcribe_batch of the inputs on a port bundle at ``data`` x
+    ``model`` (f32, GRAPH_TOKENS tokens, no fallback rung): its texts and
+    the token loop's record."""
+    b = port_bundle(trees, data, model, max_decode_tokens=GRAPH_TOKENS,
+                    max_fallback_attempts=1, **knobs)
+    with recorded_loops() as loops:
+        texts = b.transcribe_batch(inputs["audio"], inputs["prompts"],
+                                   temperature=temperature)
+    return b, texts, loops[-1]
+
+
+def sharded_graph_route(devices, trees, inputs):
+    """One of two CPU ranks at 1x2 over gloo: each GRAPH_CALLS call on the
+    graph route run on the CPU (``cpu_graph_route``) and on the eager step
+    loop, with the decode graphs' counts and keys; then the stop agreement
+    with the ranks' pairs made to differ, in ``_agree`` and through
+    ``decode_graph.drive``. Rank 0 returns every rank's results."""
+    import torch
+    import torch.distributed as dist
+
+    from clearconverse_tpu_torch.models import decode_graph, decoding
+
+    out = {}
+    for name, knobs, temp in GRAPH_CALLS:
+        with cpu_graph_route():
+            b, texts, loop = graph_call(trees, inputs, 1, 2, knobs, temp)
+        shard = b._whisper[0]
+        graphs = decode_graph.graphs_for(shard)
+        _, e_texts, eager = graph_call(trees, inputs, 1, 2, knobs, temp)
+        out[name] = {"texts": texts, "loop": loop, "eager_texts": e_texts,
+                     "eager": eager, "stats": dict(graphs.stats),
+                     "keys": [repr(k) for k in graphs.captured()],
+                     "heads": graphs._arena.layout.heads}
+
+    # Ranks whose control pairs differ: both read [-1, 1], and drive
+    # raises on both at the same flag.
+    shard = b._whisper[0]
+    ctl = torch.tensor([5 + dist.get_rank(), 0])
+    decoding._agree(ctl, shard)
+    out["agreed"] = ctl.tolist()
+
+    def launch(i):
+        ctl.copy_(torch.tensor([decode_graph.K * (i + 1),
+                                int(i == 1 and dist.get_rank() == 0)]))
+        decoding._agree(ctl, shard)
+
+    try:
+        decode_graph.drive(launch, ctl, 4,
+                           decode_graph.StopFlags(torch.device("cpu")))
+        out["drive"] = "no error"
+    except RuntimeError as exc:
+        out["drive"] = str(exc)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)
+    return ranks
+
+
+def nccl_sharded_graphs(devices):
+    """Two ranks, one card each, over NCCL at 1x2: a 2-layer Whisper with
+    two 64-wide heads (one a rank) decodes 3 rows of seeded noise, 20
+    tokens with EOT off, whole (1x1, graph route) and as this rank's shard
+    on the graph route and on the eager step loop: greedy t=0 in f32 and
+    bf16, beam search 3 rows x 5 in f32, best_of 5 at t=0.1. Rank 0
+    returns every rank's packed results, steps and graph counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from clearconverse_tpu_torch.models import decode_graph, decoding
+    from clearconverse_tpu_torch.models.convert import init_whisper
+    from clearconverse_tpu_torch.models.whisper import (
+        WhisperDims, tensor_parallel)
+    from clearconverse_tpu_torch.parallel.mesh import build_mesh
+    from clearconverse_tpu_torch.parallel.sharding import shard_whisper
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dims = WhisperDims(n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+                       n_text_state=128, n_text_head=2, n_text_layer=2)
+    mesh = build_mesh(1, 2, devices)
+    audio = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 24000)).astype(np.float32) * 0.1).cuda()
+    calls = {"greedy_f32": (torch.float32, {}),
+             "greedy_bf16": (torch.bfloat16, {}),
+             "beam_f32": (torch.float32, dict(replicas=5, beam=True)),
+             "best_of": (torch.float32, dict(replicas=5, temperature=0.1))}
+
+    def decode(model, cdt, kw, eager=False):
+        R = kw.get("replicas", 1)
+        toks, lens = decoding.build_prompt_batch([[50257, 50362]] * (3 * R),
+                                                 8, 50256)
+        opts = decoding.DecodeOptions(
+            max_tokens=20, eot=-1 if not kw.get("beam") else 50256,
+            suppress_tokens=tuple(range(50257, 51864)), compute_dtype=cdt,
+            **kw)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        route = decoding._graph_route
+        if eager:
+            decoding._graph_route = lambda model, device: False
+        try:
+            out = decoding.greedy_decode_from_audio(
+                model, audio, torch.from_numpy(toks).cuda(),
+                torch.from_numpy(lens).cuda(), dims, opts, 8, gen,
+                target_len=32000)
+        finally:
+            decoding._graph_route = route
+        return out["packed"].cpu().numpy(), out["steps"]
+
+    out = {"backend": mesh.backend, "route": None, "calls": {}}
+    for name, (cdt, kw) in calls.items():
+        whole = init_whisper(dims, seed=6, device="cuda", dtype=cdt)
+        shard = shard_whisper(whole, mesh)
+        out["route"] = decoding._graph_route(shard, torch.device("cuda"))
+        out["heads"] = tensor_parallel(shard).heads(dims.n_text_head)
+        graphs = decode_graph.graphs_for(shard)
+        single = decode(whole, cdt, kw)
+        graph = decode(shard, cdt, kw)
+        again = decode(shard, cdt, kw)
+        eager = decode(shard, cdt, kw, eager=True)
+        out["calls"][name] = {"single": single, "graph": graph,
+                              "again": again, "eager": eager,
+                              "stats": dict(graphs.stats)}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)
+    return ranks
