@@ -1,0 +1,15 @@
+"""The card's idle time while the host was inside the speaker stages'
+ranges (``cc:segmentation``, ``cc:diarize_cluster``, ``cc:profiles``,
+``cc:segment_embeds``, and ``cc:file.overlap_reseg`` and
+``cc:file.separation`` where a pass has them; their union), in % of the
+profiled pass. The split: ``engine.host_idle_pct.py``."""
+
+import os
+import runpy
+
+_SPLIT = runpy.run_path(os.path.join(os.path.dirname(__file__),
+                                     "engine.host_idle_pct.py"))
+
+
+def read(run):
+    return _SPLIT["idle_pct"](run, _SPLIT["SPEAKER"])

@@ -323,8 +323,8 @@ class DecodeGraphs:
                  timer) -> None:
         """Run ``chunk`` once eagerly on the capture stream (the call's
         first K steps), then capture it into ``e.graph``."""
-        span = (timer.stage("graph_capture") if timer is not None
-                else contextlib.nullcontext())
+        span = (timer.stage("graph_capture", scope="decode")
+                if timer is not None else contextlib.nullcontext())
         with span:
             t0 = time.perf_counter()
             if self._pool is None:

@@ -249,8 +249,10 @@ def greedy_decode_from_audio(
 
 
 def _span(timer: Optional[StageTimer], name: str):
-    """``timer``'s span ``name``, or no span when there is no timer."""
-    return contextlib.nullcontext() if timer is None else timer.stage(name)
+    """``timer``'s span ``name``; without a timer, a span of a timer that is
+    dropped, so only its profiler range (``cc:decode.<name>``, while the
+    profiler runs) is kept."""
+    return (timer or StageTimer()).stage(name, scope="decode")
 
 
 def _widen_codes(ckv: Dict[str, Any], cdt: torch.dtype) -> Dict[str, Any]:

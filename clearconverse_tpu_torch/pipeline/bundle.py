@@ -212,7 +212,7 @@ class ModelBundle:
         # Wall-clock spans of the transcribe calls ("decode_dev" = device
         # program incl. the result copy). Totals only: the bundle lives as
         # long as the server.
-        self._stage_timer = StageTimer(totals_only=True)
+        self._stage_timer = StageTimer(totals_only=True, scope="bundle")
         # When set, every decode call records its stages' spans here (see
         # decoding.greedy_decode); StageTimer(sync=True) times device work.
         self.decode_timer: Optional[StageTimer] = None

@@ -347,7 +347,9 @@ class TranscriptionEngine:
         files together, then ALL files' transcription items merge into one
         wavefront so segments of different requests share device batches.
         Returns one result dict per file, None for a file that failed."""
-        with self._run_lock:
+        # The whole call, lock and joins included, as one profiler range;
+        # last_run_stage_times keeps the stages inside it.
+        with StageTimer().stage("process_files"), self._run_lock:
             if hasattr(self.models, "config"):
                 self.models.config = self.config
             if hasattr(self.models, "should_cancel"):
@@ -398,7 +400,8 @@ class TranscriptionEngine:
                 # The gated audio stays resident: decode, segmentation and
                 # embedding batches gather windows from it.
                 try:
-                    store = self.models.make_store(dev_batch, sr0)
+                    with run_timer.stage("make_store"):
+                        store = self.models.make_store(dev_batch, sr0)
                 except ProcessingCancelled:
                     raise
                 except Exception as exc:  # noqa: BLE001 — host fallback
@@ -495,7 +498,7 @@ class TranscriptionEngine:
                     continue
                 try:
                     plans[i] = self._plan_file(p, should_cancel,
-                                               preloaded=pre)
+                                               preloaded=pre, index=i)
                     # Snapshot the per-file timer now: _prepare_file keeps
                     # appending to it.
                     plans[i]["_plan_spans"] = dict(
@@ -538,77 +541,83 @@ class TranscriptionEngine:
                                         seg_embs=embs_per_file[i])
                      if pre is not None else None
                      for i, (p, pre) in enumerate(zip(file_paths, preloads))]
-        # Per-file sub-stages summed across files: spans recorded during
-        # plan_files as plan_files.*, the rest as prepare_files.* (the two
-        # phases share one timer per file).
-        prep_sub: Dict[str, float] = {}
-        plan_sub: Dict[str, float] = {}
-        for plan in plans:
-            if plan is not None:
-                for k, v in plan.get("_plan_spans", {}).items():
-                    plan_sub[k] = plan_sub.get(k, 0.0) + v
-        for prep, plan in zip(preps, plans):
-            if prep is None:
-                continue
-            snap = plan.get("_plan_spans", {}) if plan is not None else {}
-            for k, v in prep["timer"].as_dict().items():
-                delta = v - snap.get(k, 0.0)
-                if delta > 0:
-                    prep_sub[k] = prep_sub.get(k, 0.0) + delta
-        for k, v in plan_sub.items():
-            run_timer.spans.append((f"plan_files.{k}", v))
-        for k, v in prep_sub.items():
-            run_timer.spans.append((f"prepare_files.{k}", v))
-        merged: List[Dict] = []
-        offsets: List[int] = []
-        for prep in preps:
-            offsets.append(len(merged))
-            if prep is None:
-                continue
-            off = len(merged)
-            for it in prep["items"]:
-                it = dict(it)
-                if it["depends_on"] is not None:
-                    it["depends_on"] += off
-                merged.append(it)
-        # Start the gated-audio download now, under the decode wavefront:
-        # _finalize needs the bytes, and the decode moves little else.
-        for a in self._inflight_hosts:
-            if hasattr(a, "prefetch"):
-                a.prefetch()
+        with run_timer.stage("merge"):
+            # Per-file sub-stages summed across files: spans recorded
+            # during plan_files as plan_files.*, the rest as prepare_files.*
+            # (the two phases share one timer per file).
+            prep_sub: Dict[str, float] = {}
+            plan_sub: Dict[str, float] = {}
+            for plan in plans:
+                if plan is not None:
+                    for k, v in plan.get("_plan_spans", {}).items():
+                        plan_sub[k] = plan_sub.get(k, 0.0) + v
+            for prep, plan in zip(preps, plans):
+                if prep is None:
+                    continue
+                snap = plan.get("_plan_spans", {}) if plan is not None else {}
+                for k, v in prep["timer"].as_dict().items():
+                    delta = v - snap.get(k, 0.0)
+                    if delta > 0:
+                        prep_sub[k] = prep_sub.get(k, 0.0) + delta
+            for k, v in plan_sub.items():
+                run_timer.spans.append((f"plan_files.{k}", v))
+            for k, v in prep_sub.items():
+                run_timer.spans.append((f"prepare_files.{k}", v))
+            merged: List[Dict] = []
+            offsets: List[int] = []
+            for prep in preps:
+                offsets.append(len(merged))
+                if prep is None:
+                    continue
+                off = len(merged)
+                for it in prep["items"]:
+                    it = dict(it)
+                    if it["depends_on"] is not None:
+                        it["depends_on"] += off
+                    merged.append(it)
+            # Start the gated-audio download now, under the decode
+            # wavefront: _finalize needs the bytes, and the decode moves
+            # little else.
+            for a in self._inflight_hosts:
+                if hasattr(a, "prefetch"):
+                    a.prefetch()
         if merged:
             sr = next(p["sr"] for p in preps if p is not None)
             with self._phase(run_timer, "decode_wavefront"):
                 self._transcribe_wavefront(merged, sr, should_cancel)
         results: List[Optional[Dict]] = []
-        for prep, off in zip(preps, offsets):
-            if prep is None:
-                results.append(None)
-                continue
-            n = len(prep["items"])
-            for local, it in zip(prep["items"], merged[off : off + n]):
-                local["text"] = it.get("text", "")
-            try:
-                results.append(self._finalize(prep))
-            except ProcessingCancelled:
-                raise
-            except Exception as exc:  # noqa: BLE001 — per-file isolation:
-                # _finalize is the first host-byte access on store paths, so
-                # a failed download surfaces here; that file becomes None.
-                if is_fatal(exc):
+        # The first read of host bytes (lazy views wait for the async
+        # download here), then the download's join and flush.
+        with run_timer.stage("finalize"):
+            for prep, off in zip(preps, offsets):
+                if prep is None:
+                    results.append(None)
+                    continue
+                n = len(prep["items"])
+                for local, it in zip(prep["items"], merged[off : off + n]):
+                    local["text"] = it.get("text", "")
+                try:
+                    results.append(self._finalize(prep))
+                except ProcessingCancelled:
                     raise
-                logger.error("finalize failed for %s: %s",
-                             file_paths[len(results)], exc)
-                results.append(None)
-        for pre in preloads:
-            if pre is not None:
-                a = pre.get("audio")
-                if hasattr(a, "wait"):
-                    a.wait()      # the shared download ends with the run
-                flush = getattr(a, "stats_flush", None)
-                if flush is not None:
-                    flush()   # one flush covers the shared batch download
-                    break
+                except Exception as exc:  # noqa: BLE001 — per-file
+                    # isolation: _finalize is the first host-byte access on
+                    # store paths, so a failed download surfaces here; that
+                    # file becomes None.
+                    if is_fatal(exc):
+                        raise
+                    logger.error("finalize failed for %s: %s",
+                                 file_paths[len(results)], exc)
+                    results.append(None)
+            for pre in preloads:
+                if pre is not None:
+                    a = pre.get("audio")
+                    if hasattr(a, "wait"):
+                        a.wait()      # the shared download ends with the run
+                    flush = getattr(a, "stats_flush", None)
+                    if flush is not None:
+                        flush()   # one flush covers the shared batch download
+                        break
         for k, v in load_sub.items():   # sub-decomposition of load_gate
             run_timer.spans.append((f"load_gate.{k}", v))
         self.last_run_stage_times = run_timer.as_dict()
@@ -616,13 +625,16 @@ class TranscriptionEngine:
 
     def _plan_file(self, file_path: str,
                    should_cancel: Optional[Callable[[], bool]] = None,
-                   preloaded: Optional[Dict] = None) -> Dict:
+                   preloaded: Optional[Dict] = None,
+                   index: Optional[int] = None) -> Dict:
         """Analysis planning for one file: load / vad / diarization /
         profiles (normally preloaded by process_files' batched phases)
         through segment classification. Raises on failure; the caller owns
-        per-file isolation."""
+        per-file isolation. ``index``, the file's place in its run, goes
+        with the profiler ranges of the file's spans."""
         cfg = self.config
-        timer = StageTimer()
+        timer = StageTimer(scope="file",
+                           args=None if index is None else {"file": index})
 
         def ck():  # one cancel check per analysis stage boundary
             check_cancel(should_cancel)
@@ -931,7 +943,8 @@ class TranscriptionEngine:
                                    if s_.metadata.get("rapid_exchange", False)),
             "stage_times": timer.as_dict(),
         }
-        logger.info("pipeline stages: %s", timer.summary())
+        if logger.isEnabledFor(logging.INFO):
+            logger.info("pipeline stages: %s", timer.summary())
         return {"segments": processed, "metadata": metadata}
 
     def _transcribe_wavefront(self, items: List[Dict], sr: int,
