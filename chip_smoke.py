@@ -33,7 +33,8 @@ Phases, each fatal on failure:
                timed passes; RTFx,
                the stage split, segments per file, the audio wire, peak
                device memory and K1/K2 launches. It fails on a None file, an
-               ERROR log record of the port, a wire other than packed_delta,
+               ERROR log record of the port, a wire other than raw int16
+               with every file read straight into the staging batch,
                a >30 s segment without transcribe_long_batch, or a kernel that
                did not launch;
   6. engine card vs CPU — the same seeded speaker weights and a 2-layer
@@ -877,9 +878,11 @@ def phase_engine(profile: bool, model_dir: str):
                 log(f"[engine]   stage split (s): {split}")
             wire = passes[-1]["wire"]
             log(f"[engine] wire {wire}")
-            if wire.get("format") != "packed_delta":
-                raise SystemExit(f"engine: the wire is {wire.get('format')}, "
-                                 "not packed_delta")
+            if (wire.get("format") != "int16"
+                    or wire.get("rows_direct") != len(paths)):
+                raise SystemExit(f"engine: the wire is {wire.get('format')} "
+                                 f"with {wire.get('rows_direct')} rows read "
+                                 f"into staging, not int16 with {len(paths)}")
             launches = {"mel_power": k1.mel_power.launches,
                         "encoder_attention": k2.encoder_attention.launches}
             log(f"[engine] kernel launches in the phase's three passes: "

@@ -3,21 +3,24 @@
 ``ensure_wav_format`` (back/api.py:530-568) and ``load_audio``
 (back/api.py:799-838): WAV decodes in audio/wav.py; other containers go
 through an ffmpeg subprocess when the binary exists, keeping the original
-path on failure. ``load_audio_many`` is the engine's batched load: per-file
-host decode, one upload over the audio wire (lossless delta packing by
-default), one gate + normalize over the padded batch on the device, and a
-download of the gated batch that starts only when a caller first reads the
-bytes (``LazyAudio``).
+path on failure. ``load_audio_many`` is the engine's batched load: the
+files read in parallel into one reused int16 staging batch, one upload over
+the audio wire, one gate + normalize over the padded batch on the device,
+and a download of the gated batch that starts only when a caller first
+reads the bytes (``LazyAudio``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
+import os
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Tuple
 
 import numpy as np
@@ -25,7 +28,7 @@ import torch
 
 from clearconverse_tpu_torch.audio import denoise as _denoise
 from clearconverse_tpu_torch.audio.resample import resample
-from clearconverse_tpu_torch.audio.wav import _scan_chunks, read_wav, read_wav_i16
+from clearconverse_tpu_torch.audio.wav import is_mono_i16, read_wav, scan_layout
 from clearconverse_tpu_torch.utils.errors import is_fatal
 from clearconverse_tpu_torch.utils.tracing import force_sync
 
@@ -206,13 +209,233 @@ def lazy_slice(audio, a: int, b: int):
     return LazyClip(audio, a, b)
 
 
+# Files are read into the staging batch by at most this many threads: file
+# reads release the interpreter lock.
+_READ_WORKERS = min(8, os.cpu_count() or 1)
+
+
+class _Staging:
+    """The process's host batch of int16 rows that ``load_audio_many`` reads
+    files into: one flat buffer viewed as [K, T], page-locked when the batch
+    goes to a CUDA device, reused by every call and grown when a larger
+    batch is asked for. ``lock`` is held from the first row written until
+    the upload is enqueued; ``uploaded`` is the CUDA event recorded after
+    that upload, waited on before the buffer is written again."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.flat = None
+        self.pinned = False
+        self.uploaded = None
+
+    def take(self, K: int, T: int, pinned: bool):
+        """→ (int16 [K, T] tensor over the buffer, whether it was reused)."""
+        if self.uploaded is not None:
+            self.uploaded.synchronize()
+            self.uploaded = None
+        n = K * T
+        reused = (self.flat is not None and self.flat.numel() >= n
+                  and (self.pinned or not pinned))
+        if not reused:
+            self.flat = None    # the old buffer goes back before the new one
+            self.flat = torch.empty(n, dtype=torch.int16, pin_memory=pinned)
+            self.pinned = pinned
+        return self.flat[:n].view(K, T), reused
+
+
+_STAGING = _Staging()
+_POOL = None
+_POOL_LOCK = threading.Lock()
+
+
+def _reader_pool() -> ThreadPoolExecutor:
+    """The process's reader threads, made at first use."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            _POOL = ThreadPoolExecutor(_READ_WORKERS,
+                                       thread_name_prefix="cc-wav-read")
+        return _POOL
+
+
+def _after_fork_in_child():
+    # A forked child has none of its parent's threads, and the buffer may
+    # be pinned by the parent's CUDA context: it starts afresh.
+    global _STAGING, _POOL, _POOL_LOCK
+    _STAGING, _POOL, _POOL_LOCK = _Staging(), None, threading.Lock()
+
+
+os.register_at_fork(after_in_child=_after_fork_in_child)
+
+
+@dataclasses.dataclass
+class _Staged:
+    """One call's batch in the staging buffer: ``rows`` int16 [K, T] (each
+    row zero past its ``n_outs``), the path index of each row (``order``),
+    and the float32 waves of the rows that were converted."""
+
+    rows: torch.Tensor
+    order: list
+    n_outs: list
+    converted: dict
+    reused: bool
+
+
+def _to_mono_float(path: str, target_sr: int, device) -> np.ndarray:
+    """Any other WAV layout → float32 mono at ``target_sr`` (a resample runs
+    on ``device``, on the calling thread's stream)."""
+    samples, sr = read_wav(path)
+    mono = samples.mean(axis=0).astype(np.float32)
+    if sr == target_sr:
+        return mono
+    n = len(mono)
+    padded = np.pad(mono, (0, _next_bucket(n, sr) - n))
+    n_out = int(math.ceil(target_sr * n / sr))
+    return resample(torch.from_numpy(padded).to(device), sr,
+                    target_sr)[:n_out].cpu().numpy()
+
+
+def _read_headers(paths):
+    """Each path's (format, payload offset, bytes), or the exception that
+    reading its header raised."""
+    heads = []
+    for p in paths:
+        try:
+            with open(p, "rb") as fh:
+                heads.append(scan_layout(fh, p))
+        except Exception as exc:  # noqa: BLE001 — raised on the caller's thread
+            heads.append(exc)
+    return heads
+
+
+def _in_pool(fn, items, *args) -> list:
+    """``fn(chunk, *args)`` over ``items`` split into at most
+    ``_READ_WORKERS`` strided chunks on the reader pool → the results of
+    every chunk's items, in ``items``' order."""
+    n_jobs = min(len(items), _READ_WORKERS)
+    futures = [_reader_pool().submit(fn, items[j::n_jobs], *args)
+               for j in range(n_jobs)]
+    wait(futures)      # every chunk ends before any chunk's error is raised
+    out = [None] * len(items)
+    for j, fut in enumerate(futures):
+        out[j::n_jobs] = fut.result()
+    return out
+
+
+def _scan_files(paths, target_sr: int, device):
+    """Phase one: every file's header, read on the reader pool, then, on
+    the calling thread, the conversion of every file that is not mono
+    16-bit PCM at ``target_sr`` → ({path index: (path, payload offset,
+    bytes)} of the files read as they are, {path index: float32 wave} of
+    the converted ones). A file that fails is logged and left out of both."""
+    direct, converted = {}, {}
+    wavs = []
+    for i, p in enumerate(paths):
+        try:
+            wavs.append((i, ensure_wav_format(p)))
+        except Exception as exc:  # noqa: BLE001 — per-file failure → None
+            if is_fatal(exc):
+                raise
+            logger.error("load_audio failed for %s: %s", p, exc)
+    heads = _in_pool(_read_headers, [p for _, p in wavs])
+    for (i, p), head in zip(wavs, heads):
+        try:
+            if isinstance(head, Exception):
+                raise head
+            fmt, offset, nbytes = head
+            if is_mono_i16(fmt):
+                if nbytes % 2:
+                    raise ValueError(f"{p}: an odd payload of {nbytes} "
+                                     "bytes of 16-bit samples")
+                if fmt[2] == target_sr:
+                    direct[i] = (p, offset, nbytes)
+                    continue
+            converted[i] = _to_mono_float(p, target_sr, device)
+        except Exception as exc:  # noqa: BLE001 — per-file failure → None
+            if is_fatal(exc):
+                raise
+            logger.error("load_audio failed for %s: %s", p, exc)
+    return direct, converted
+
+
+def _read_rows(jobs, rows: np.ndarray):
+    """Read each job's (row, path, offset, bytes) samples straight into its
+    row of ``rows`` (little-endian, as the host is) and zero the row's tail
+    → for each job, None or the OSError that kept its row from being read."""
+    errors = []
+    for row, path, offset, nbytes in jobs:
+        dst = rows[row]
+        n = nbytes // 2
+        err = None
+        try:
+            view = memoryview(dst[:n]).cast("B")
+            with open(path, "rb", buffering=0) as fh:
+                fh.seek(offset)
+                got = 0
+                while got < nbytes:
+                    k = fh.readinto(view[got:])
+                    if not k:
+                        raise OSError(f"{path}: the file ended {nbytes - got}"
+                                      " bytes short of its samples")
+                    got += k
+        except OSError as exc:
+            err = exc
+        dst[n:] = 0
+        errors.append(err)
+    return errors
+
+
+def _write_scaled(dst: np.ndarray, w: np.ndarray) -> None:
+    """A float row pre-scaled to its own peak on the int16 grid (the gate is
+    scale-invariant and the output is peak-normalized, so quiet sources
+    keep 16-bit precision), zero past its end."""
+    peak = max(float(np.max(np.abs(w))), 1e-12) if len(w) else 1e-12
+    dst[: len(w)] = np.clip(np.round(w * (32767.0 / peak)), -32768,
+                            32767).astype(np.int16)
+    dst[len(w):] = 0
+
+
+def _stage(direct: dict, converted: dict, target_sr: int,
+           pinned: bool) -> "_Staged | None":
+    """Phase two, under ``_STAGING.lock``: every loaded file gets its row in
+    path order; the calling thread writes the converted rows, then the pool
+    reads the others. A row whose read fails drops its file, and the batch
+    is laid out again without it. None when no file loaded."""
+    while direct or converted:
+        order = sorted([*direct, *converted])
+        n_outs = [direct[i][2] // 2 if i in direct else len(converted[i])
+                  for i in order]
+        rows, reused = _STAGING.take(len(order),
+                                     _next_bucket(max(n_outs), target_sr),
+                                     pinned)
+        q = rows.numpy()
+        for row, i in enumerate(order):
+            if i in converted:
+                _write_scaled(q[row], converted[i])
+        jobs = [(row, *direct[i]) for row, i in enumerate(order)
+                if i in direct]
+        failed = [(job, exc) for job, exc in
+                  zip(jobs, _in_pool(_read_rows, jobs, q)) if exc is not None]
+        if not failed:
+            return _Staged(rows, order, n_outs,
+                           {i: converted[i] for i in order if i in converted},
+                           reused)
+        for (row, path, _, _), exc in failed:
+            logger.error("load_audio failed for %s: %s", path, exc)
+            del direct[order[row]]
+    return None
+
+
 def load_audio_many(paths, target_sr: int = TARGET_SR,
                     noise_reduction_amount: float = 0.5,
                     denoise: bool = True, return_device: bool = False,
                     stage_times=None, host_async: bool = False,
-                    wire_bits: int = 16, wire_info=None, device="cuda"):
-    """Batched multi-file load: per-file host decode (and resample of files
-    not at ``target_sr``), then one upload and one gate + normalize over the
+                    wire_bits: int = 16, wire_info=None, device="cuda",
+                    staging_info=None):
+    """Batched multi-file load: every file's header first (and the
+    conversion of files that are not mono 16-bit PCM at ``target_sr``),
+    then the others read in parallel straight into their rows of one
+    reused staging batch, one upload and one gate + normalize over the
     padded batch on ``device``, and one download.
 
     Returns a list aligned with ``paths``: float32 [T] arrays (LazyAudio
@@ -220,11 +443,17 @@ def load_audio_many(paths, target_sr: int = TARGET_SR,
     failed to load. With ``return_device=True`` also returns the gated
     device batch [K, T] and a path → row map (the engine's AudioStore).
 
-    ``wire_bits``: 0 = lossless delta packing (raw int16 when no order fits
-    13 bits or the native packer is missing), 16 = raw int16, 8 = mu-law.
-    ``wire_info`` (a dict) receives what crossed the wire: format, width,
-    bytes. ``stage_times`` (a dict) receives host_decode, upload_gate and
-    download spans."""
+    ``wire_bits``: 16 = raw int16, 8 = mu-law, 0 = lossless. Lossless sends
+    raw int16 to a CUDA device, from the page-locked staging batch, where
+    packing would cost more host time than it saves on the bus; to any
+    other device it sends the JAX package's delta packing (audio/pack.py;
+    raw int16 when no order fits 13 bits or the native packer is missing),
+    which the CPU tests hold the port to. ``wire_info`` (a dict) receives
+    what crossed the wire: format, width, bytes. ``staging_info`` (a dict)
+    receives ``rows_direct`` (rows read straight into the staging batch),
+    ``rows_converted`` and ``staging_reused`` (1 when the batch fit the
+    buffer the process already had). ``stage_times`` (a dict) receives
+    host_decode, upload_gate and download spans."""
     def _mark(key: str, t0: float) -> float:
         t1 = time.perf_counter()
         if stage_times is not None:
@@ -235,99 +464,76 @@ def load_audio_many(paths, target_sr: int = TARGET_SR,
         raise ValueError(f"wire_bits must be 0 (lossless packed), 8, or "
                          f"16, got {wire_bits}")
     device = torch.device(device)
+    on_cuda = device.type == "cuda"
     t0 = time.perf_counter()
-    waves, n_outs, order = [], [], []
     results = [None] * len(paths)
     row_map = [None] * len(paths)
-
-    for i, p in enumerate(paths):
-        try:
-            p = ensure_wav_format(p)
-            # Mono 16-bit PCM at target_sr keeps its int16 grid all the way
-            # to the device: no float round trip, no requantization.
-            scanned = _scan_chunks(p)
-            fast = read_wav_i16(p, scanned=scanned)
-            if fast is not None and fast[1] == target_sr:
-                waves.append(fast[0])
-                n_outs.append(len(fast[0]))
-                order.append(i)
-                continue
-            samples, sr = read_wav(p, scanned=scanned)
-            mono = samples.mean(axis=0).astype(np.float32)
-            n_out = len(mono)
-            if sr != target_sr:
-                padded = np.pad(mono, (0, _next_bucket(n_out, sr) - n_out))
-                n_out = int(math.ceil(target_sr * n_out / sr))
-                mono = resample(torch.from_numpy(padded).to(device), sr,
-                                target_sr)[:n_out].cpu().numpy()
-            waves.append(mono)
-            n_outs.append(n_out)
-            order.append(i)
-        except Exception as exc:  # noqa: BLE001 — per-file failure → None
-            if is_fatal(exc):
-                raise
-            logger.error("load_audio failed for %s: %s", p, exc)
-    if not waves:
-        return (results, None, row_map) if return_device else results
-    # The batch assembles on the host and crosses the wire as int16 (or
-    # mu-law): native int16 rows keep their grid; float rows pre-scale to
-    # their own peak first (the gate is scale-invariant and the output is
-    # peak-normalized, so quiet sources keep 16-bit precision).
-    T = _next_bucket(max(n_outs), target_sr)
-    if wire_bits == 8:
-        from clearconverse_tpu_torch.audio.wire import (mulaw_encode_i16_np,
-                                                        mulaw_encode_np)
-        q_up = np.full((len(waves), T), 128, np.uint8)  # code 128 = 0.0
-        for row, w in enumerate(waves):
-            if w.dtype == np.int16:
-                q_up[row, : len(w)] = mulaw_encode_i16_np(w)
-                continue
-            x = np.asarray(w, np.float32)
-            peak = max(float(np.max(np.abs(x))), 1e-12) if len(x) else 1e-12
-            q_up[row, : len(x)] = mulaw_encode_np(x / peak)
-    else:
-        q_up = np.zeros((len(waves), T), np.int16)
-        for row, w in enumerate(waves):
-            if w.dtype == np.int16:
-                q_up[row, : len(w)] = w
-                continue
-            peak = max(float(np.max(np.abs(w))), 1e-12) if len(w) else 1e-12
-            scaled = w * (32767.0 / peak)
-            q_up[row, : len(w)] = np.clip(np.round(scaled), -32768,
-                                          32767).astype(np.int16)
-    packed = None
-    if wire_bits == 0:
-        from clearconverse_tpu_torch.audio.pack import pack_i16_batch
-        packed = pack_i16_batch(q_up, n_outs)
-    if wire_info is not None:
-        wire_info["bytes_raw_int16"] = int(q_up.size) * 2
-        if packed is not None:
-            wire_info.update(format="packed_delta", width=packed.width,
-                             order=packed.order,
-                             bytes_wire=int(packed.data.size
-                                            + packed.x0.size * 8))
-        elif wire_bits == 8:
-            wire_info.update(format="mulaw8", width=8,
-                             bytes_wire=int(q_up.size))
-        else:
-            wire_info.update(format="int16", width=16,
-                             bytes_wire=int(q_up.size) * 2)
-    t0 = _mark("host_decode", t0)
-    dn = bool(denoise and noise_reduction_amount > 0)
-    n_valid = torch.tensor(n_outs, dtype=torch.int32, device=device)
+    direct, converted = _scan_files(paths, target_sr, device)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    with _STAGING.lock:
+        staged = _stage(direct, converted, target_sr, pinned=on_cuda)
+        if staged is None:
+            return (results, None, row_map) if return_device else results
+        order, n_outs = staged.order, staged.n_outs
+        q = staged.rows.numpy()
+        packed = None
+        if wire_bits == 8:
+            from clearconverse_tpu_torch.audio.wire import (
+                mulaw_encode_i16_np, mulaw_encode_np)
+            q_up = np.full(q.shape, 128, np.uint8)  # code 128 = 0.0
+            for row, i in enumerate(order):
+                if i not in staged.converted:
+                    q_up[row, : n_outs[row]] = mulaw_encode_i16_np(
+                        q[row, : n_outs[row]])
+                    continue
+                x = staged.converted[i]
+                peak = max(float(np.max(np.abs(x))), 1e-12) if len(x) else 1e-12
+                q_up[row, : len(x)] = mulaw_encode_np(x / peak)
+        elif wire_bits == 0 and not on_cuda:
+            from clearconverse_tpu_torch.audio.pack import pack_i16_batch
+            packed = pack_i16_batch(q, n_outs)
+        if wire_info is not None:
+            wire_info["bytes_raw_int16"] = int(q.size) * 2
+            if packed is not None:
+                wire_info.update(format="packed_delta", width=packed.width,
+                                 order=packed.order,
+                                 bytes_wire=int(packed.data.size
+                                                + packed.x0.size * 8))
+            elif wire_bits == 8:
+                wire_info.update(format="mulaw8", width=8,
+                                 bytes_wire=int(q.size))
+            else:
+                wire_info.update(format="int16", width=16,
+                                 bytes_wire=int(q.size) * 2)
+        if staging_info is not None:
+            staging_info.update(
+                rows_direct=len(order) - len(staged.converted),
+                rows_converted=len(staged.converted),
+                staging_reused=int(staged.reused))
+        t0 = _mark("host_decode", t0)
+        if packed is not None:
+            up = (put(packed.data), put(packed.x0), put(packed.e1))
+        elif wire_bits == 8:
+            up = put(q_up)
+        elif on_cuda:
+            up = staged.rows.to(device, non_blocking=True)
+            _STAGING.uploaded = torch.cuda.Event()
+            _STAGING.uploaded.record(torch.cuda.current_stream(device))
+        else:
+            up = staged.rows.clone()
+    dn = bool(denoise and noise_reduction_amount > 0)
+    n_valid = torch.tensor(n_outs, dtype=torch.int32, device=device)
     if packed is not None:
         batch, q_down = _denoise.gate_normalize_packed(
-            put(packed.data), put(packed.x0), put(packed.e1),
-            packed.order == 2, noise_reduction_amount, n_valid,
+            *up, packed.order == 2, noise_reduction_amount, n_valid,
             sr=target_sr, denoise=dn, width=packed.width)
     else:
         gate = (_denoise.gate_normalize_u8 if wire_bits == 8
                 else _denoise.gate_normalize_i16)
-        batch, q_down = gate(put(q_up), noise_reduction_amount, n_valid,
+        batch, q_down = gate(up, noise_reduction_amount, n_valid,
                              sr=target_sr, denoise=dn)
     force_sync()
     t0 = _mark("upload_gate", t0)

@@ -1,5 +1,6 @@
 """Native host-side packer of the lossless delta wire (``wavcodec.cc``),
-built with ``g++`` at first use and loaded with ctypes.
+built with ``g++`` at first use and loaded with ctypes. The packed wire runs
+only where the batch goes to a device other than a CUDA one (audio/pack.py).
 
 The library lands in the gitignored ``clearconverse_tpu_torch/_build/``
 under a file name keyed on a hash of the source and the flags, as

@@ -1,4 +1,12 @@
-"""Lossless bit-packed delta wire for host→device audio uploads (default).
+"""Lossless bit-packed delta wire for host→device audio uploads.
+
+``load_audio_many``'s lossless wire takes this form to any device but a
+CUDA one: it is the JAX package's wire, built for a host link slow enough
+that the host time spent packing paid for the bytes it saved, and the CPU
+tests hold the port to it. To a CUDA device the same batch goes as raw
+int16 from page-locked memory, where the quarter of the bytes it would
+save crosses PCIe faster than the host packs it; the gate's input is the
+same either way.
 
 Speech waveforms at 16 kHz / 16 bit are heavily oversampled, so their
 sample-to-sample deltas need far fewer bits than the samples: first- or

@@ -1,13 +1,14 @@
 """RIFF/WAVE codec, numpy path.
 
 PCM 8/16/24/32-bit and IEEE float 32/64, any channel count, tolerant of the
-extension chunks real encoders emit. ``read_wav_i16`` is the raw fast path
-for mono 16-bit PCM that ``audio/decode.load_audio_many`` sends to the device
-as int16.
+extension chunks real encoders emit. ``read_wav_i16`` is the raw path for
+mono 16-bit PCM; ``scan_layout`` finds where such a file's samples lie, so
+``audio/decode.load_audio_many`` can read them straight into its batch.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Tuple
 
@@ -18,30 +19,43 @@ _IEEE_FLOAT = 3
 _EXTENSIBLE = 0xFFFE
 
 
-def _scan_chunks(path: str):
-    """RIFF chunk walk → ((tag, channels, rate, bits), data payload)."""
-    with open(path, "rb") as fh:
-        data = fh.read()
-    if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+def scan_layout(fh, path: str):
+    """RIFF chunk walk over an open file's headers alone → ((tag, channels,
+    rate, bits), payload offset, payload bytes). Extension chunks are
+    skipped, odd-sized chunks are word-aligned, and a data chunk that runs
+    past the end of the file is cut at it; the payload is not read."""
+    end = os.fstat(fh.fileno()).st_size
+    head = fh.read(12)
+    if len(head) < 12 or head[:4] != b"RIFF" or head[8:12] != b"WAVE":
         raise ValueError(f"{path}: not a RIFF/WAVE file")
 
     fmt = None
-    payload = None
+    data = None
     pos = 12
-    while pos + 8 <= len(data):
-        cid = data[pos : pos + 4]
-        (size,) = struct.unpack_from("<I", data, pos + 4)
-        body = data[pos + 8 : pos + 8 + size]
+    while pos + 8 <= end:
+        fh.seek(pos)
+        hdr = fh.read(8)
+        cid = hdr[:4]
+        (size,) = struct.unpack_from("<I", hdr, 4)
+        body = min(size, end - pos - 8)
         if cid == b"fmt ":
-            fmt = _parse_fmt(body)
+            fmt = _parse_fmt(fh.read(body))
         elif cid == b"data":
-            payload = body
+            data = (pos + 8, body)
         pos += 8 + size + (size & 1)  # chunks are word-aligned
-        if fmt is not None and payload is not None:
+        if fmt is not None and data is not None:
             break
-    if fmt is None or payload is None:
+    if fmt is None or data is None:
         raise ValueError(f"{path}: missing fmt/data chunk")
-    return fmt, payload
+    return fmt, data[0], data[1]
+
+
+def _scan_chunks(path: str):
+    """RIFF chunk walk → ((tag, channels, rate, bits), data payload)."""
+    with open(path, "rb") as fh:
+        fmt, offset, nbytes = scan_layout(fh, path)
+        fh.seek(offset)
+        return fmt, fh.read(nbytes)
 
 
 def read_wav_i16(path: str, scanned=None):
@@ -50,10 +64,15 @@ def read_wav_i16(path: str, scanned=None):
     ``scanned`` (a prior ``_scan_chunks`` result) skips re-reading the file
     when the caller probes this path before falling back to read_wav."""
     fmt, payload = scanned if scanned is not None else _scan_chunks(path)
-    tag, channels, rate, bits = fmt
-    if tag != _PCM or bits != 16 or channels != 1:
+    if not is_mono_i16(fmt):
         return None
-    return np.frombuffer(payload, dtype="<i2"), rate
+    return np.frombuffer(payload, dtype="<i2"), fmt[2]
+
+
+def is_mono_i16(fmt) -> bool:
+    """True for the layout ``read_wav_i16`` takes: mono 16-bit PCM."""
+    tag, channels, _, bits = fmt
+    return tag == _PCM and bits == 16 and channels == 1
 
 
 def read_wav(path: str, scanned=None) -> Tuple[np.ndarray, int]:

@@ -404,8 +404,10 @@ def bench_engine(args, device, budget_s: float, share: dict, tmp: str) -> dict:
     out.update({
         "files": len(paths),
         "segments_per_pass": sum(len(r["segments"]) for r in results if r),
+        # What crossed the wire; the staging counters would push the last
+        # line past its 2,000 characters.
         "wire": {k: v for k, v in engine.last_run_wire.items()
-                 if k != "bytes_raw_int16"},
+                 if k in ("format", "width", "order", "bytes_wire")},
         "knobs": {"temperature": cfg.temperature,
                   "max_decode_tokens": tc.max_decode_tokens,
                   "max_fallback_attempts": tc.max_fallback_attempts,

@@ -80,7 +80,9 @@ class TorchConfig:
     self_kv_bits: int = 16
     # "bfloat16" or "float32" for the matmuls.
     compute_dtype: str = "bfloat16"
-    # Host->device audio wire: 0 = lossless delta bit-packing (audio/pack.py;
+    # Host->device audio wire: 0 = lossless (raw int16 to a CUDA device, from
+    # page-locked memory, where packing costs more host time than it saves
+    # on the bus; elsewhere the JAX package's delta bit-packing, audio/pack.py,
     # raw int16 when no delta order fits 13 bits or the native packer is
     # missing), 16 = raw int16, 8 = mu-law (audio/wire.py, lossy, opt-in).
     wire_bits: int = 0

@@ -384,7 +384,9 @@ class TranscriptionEngine:
         store = None
         row_map: List[Optional[int]] = [None] * len(file_paths)
         load_sub: Dict[str, float] = {}
-        # What crossed the audio wire this run (format, width, bytes).
+        # What crossed the audio wire this run (format, width, bytes) and
+        # how its batch was staged (rows read as they are, rows converted,
+        # the staging buffer reused).
         self.last_run_wire: Dict[str, object] = {}
         if getattr(self.models, "supports_store", False):
             with run_timer.stage("load_gate"):
@@ -395,7 +397,7 @@ class TranscriptionEngine:
                     return_device=True, stage_times=load_sub,
                     host_async=tc.host_async_download,
                     wire_bits=tc.wire_bits, wire_info=self.last_run_wire,
-                    device=self.device)
+                    staging_info=self.last_run_wire, device=self.device)
             if dev_batch is not None:
                 # The gated audio stays resident: decode, segmentation and
                 # embedding batches gather windows from it.
@@ -415,6 +417,7 @@ class TranscriptionEngine:
                                         stage_times=load_sub,
                                         wire_bits=tc.wire_bits,
                                         wire_info=self.last_run_wire,
+                                        staging_info=self.last_run_wire,
                                         device=self.device)
         # (load_sub spans are appended at the end of the run: the async
         # download's timings land after load_gate closes.)

@@ -325,3 +325,234 @@ def test_read_wav_i16_and_scanned_reuse(two_wavs):
 def test_load_audio_many_rejects_unknown_wire(two_wavs):
     with pytest.raises(ValueError, match="wire_bits"):
         tdecode.load_audio_many(two_wavs, wire_bits=4, device="cpu")
+
+
+def _write_wav_with_chunks(path, q, rate):
+    """Mono int16 WAV whose fmt chunk is WAVE_FORMAT_EXTENSIBLE (SubFormat
+    PCM), led by an odd-sized LIST chunk and with an odd-sized chunk
+    between fmt and data, each padded to a word."""
+    ext = struct.pack("<HHIIHHHHIH14x", 0xFFFE, 1, rate, rate * 2, 2, 16, 22,
+                      16, 4, 1)
+    body = q.astype("<i2").tobytes()
+    chunks = (b"LIST" + struct.pack("<I", 5) + b"INFOx\0"
+              + b"fmt " + struct.pack("<I", len(ext)) + ext
+              + b"junk" + struct.pack("<I", 3) + b"abc\0"
+              + b"data" + struct.pack("<I", len(body)) + body)
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WAVE"
+                 + chunks)
+
+
+@pytest.fixture
+def wav_mix(tmp_path, rng):
+    """16 kHz int16 mono files of two length buckets (1 s and 5 s), a
+    44.1 kHz float stereo file, a broken file and a 16 kHz int16 WAV with
+    an extension chunk and odd-sized chunks."""
+    paths = []
+    for k, n in enumerate((12800, 70000, 9000)):
+        p = str(tmp_path / f"int16_{k}.wav")
+        twav.write_wav(p, _speechlike(rng, n, 200.0 + 40 * k), SR)
+        paths.append(p)
+    p44 = str(tmp_path / "float44k.wav")
+    t = np.arange(30000) / 44100
+    _write_float_wav(p44, np.stack([0.3 * np.sin(2 * np.pi * 180 * t),
+                                    0.2 * np.sin(2 * np.pi * 260 * t)])
+                     .astype(np.float32), 44100)
+    bad = str(tmp_path / "broken.wav")
+    with open(bad, "wb") as fh:
+        fh.write(b"RIFF\0\0\0\0WAVEnot a chunk")
+    pext = str(tmp_path / "extensible.wav")
+    _write_wav_with_chunks(pext, np.round(_speechlike(rng, 20001) * 30000)
+                           .astype(np.int16), SR)
+    return [paths[0], p44, bad, paths[1], pext, paths[2]]
+
+
+def _sequential_build(paths):
+    """The batch as a loop over the files builds it: each file read whole
+    and parsed, int16 rows copied, float rows scaled to their peak, into
+    one fresh zeroed [K, T] → (batch, path index of each row, n_valid)."""
+    waves, order = [], []
+    for i, p in enumerate(paths):
+        try:
+            scanned = twav._scan_chunks(p)
+            fast = twav.read_wav_i16(p, scanned=scanned)
+            if fast is not None and fast[1] == SR:
+                waves.append(fast[0])
+            else:
+                x, sr = twav.read_wav(p, scanned=scanned)
+                mono = x.mean(axis=0).astype(np.float32)
+                n = len(mono)
+                pad = np.pad(mono, (0, tdecode._next_bucket(n, sr) - n))
+                waves.append(tresample(torch.from_numpy(pad), sr, SR)
+                             [: int(np.ceil(SR * n / sr))].numpy())
+            order.append(i)
+        except ValueError:
+            pass
+    n_outs = [len(w) for w in waves]
+    q = np.zeros((len(waves), tdecode._next_bucket(max(n_outs), SR)),
+                 np.int16)
+    for row, w in enumerate(waves):
+        if w.dtype == np.int16:
+            q[row, : len(w)] = w
+        else:
+            peak = max(float(np.max(np.abs(w))), 1e-12)
+            q[row, : len(w)] = np.clip(np.round(w * (32767.0 / peak)),
+                                       -32768, 32767).astype(np.int16)
+    return q, order, np.array(n_outs, np.int32)
+
+
+def _staged(paths, pinned=False):
+    direct, converted = tdecode._scan_files(paths, SR, torch.device("cpu"))
+    with tdecode._STAGING.lock:
+        st = tdecode._stage(direct, converted, SR, pinned)
+        return st, st.rows.numpy().copy()
+
+
+def test_staged_batch_equals_the_sequential_build(wav_mix):
+    """The parallel reader's batch equals the sequential build byte for
+    byte, and load_audio_many's rows, row map and gated rows are those of
+    the sequential batch through the int16 gate, bit for bit."""
+    want, order, n_valid = _sequential_build(wav_mix)
+    assert order == [0, 1, 3, 4, 5] and want.shape == (5, 5 * SR)
+    st, got = _staged(wav_mix)
+    assert st.order == order and st.n_outs == list(n_valid)
+    assert got.tobytes() == want.tobytes()
+    y, qo = tden.gate_normalize_i16(torch.from_numpy(want), 0.4,
+                                    torch.from_numpy(n_valid), sr=SR)
+    _, _, m_j = jdecode.load_audio_many(wav_mix, noise_reduction_amount=0.4,
+                                        return_device=True)
+    for wire_bits in (16, 0):
+        h, b, m = tdecode.load_audio_many(
+            wav_mix, noise_reduction_amount=0.4, return_device=True,
+            wire_bits=wire_bits, device="cpu")
+        assert m == m_j == [0, 1, None, 2, 3, 4]
+        assert torch.equal(b, y)
+        host = qo.numpy().astype(np.float32) / 32767.0
+        for row, i in enumerate(order):
+            np.testing.assert_array_equal(h[i], host[row, : n_valid[row]])
+        assert h[2] is None
+
+
+def test_staging_is_reused_and_zeroed_past_each_row(monkeypatch, tmp_path,
+                                                    rng):
+    """Two calls in a row, the second with fewer and shorter rows: the
+    second reuses the buffer, and no sample of the first survives past any
+    row's n_valid; a batch larger than the buffer allocates anew."""
+    monkeypatch.setattr(tdecode, "_STAGING", tdecode._Staging())
+    paths = []
+    for k, n in enumerate((70000, 66000, 71000, 9000, 12000)):
+        p = str(tmp_path / f"f{k}.wav")
+        twav.write_wav(p, _speechlike(rng, n, 150.0 + 50 * k, noise=0.2), SR)
+        paths.append(p)
+    seen = []
+    for batch in (paths[:3], paths[3:], paths):
+        info = {}
+        tdecode.load_audio_many(batch, noise_reduction_amount=0.4,
+                                wire_bits=16, device="cpu",
+                                staging_info=info)
+        seen.append(info["staging_reused"])
+        if batch == paths[3:]:
+            st, q = _staged(batch)
+            assert st.reused and q.shape == (2, SR)
+            for row, p in enumerate(batch):
+                x, _ = twav.read_wav_i16(p)
+                np.testing.assert_array_equal(q[row, : len(x)], x)
+                assert not q[row, len(x):].any()
+    assert seen == [0, 1, 0]
+
+
+@pytest.mark.parametrize("wire_bits", [0, 16, 8])
+def test_staging_counts_every_loaded_row(wav_mix, wire_bits):
+    """rows_direct + rows_converted is the number of files that loaded; the
+    staging counters leave wire_info as the JAX package writes it."""
+    info, wire = {}, {}
+    h = tdecode.load_audio_many(wav_mix, wire_bits=wire_bits, device="cpu",
+                                staging_info=info, wire_info=wire)
+    wire_j = {}
+    jdecode.load_audio_many(wav_mix, wire_bits=wire_bits, wire_info=wire_j)
+    assert wire == wire_j
+    assert info["rows_direct"] == 4 and info["rows_converted"] == 1
+    assert info["rows_direct"] + info["rows_converted"] == sum(
+        x is not None for x in h)
+
+
+def test_odd_int16_payload_fails_as_in_jax(tmp_path, rng):
+    """A mono int16 file whose data chunk has an odd size fails to load in
+    both packages, at the target rate and at another."""
+    good = str(tmp_path / "good.wav")
+    twav.write_wav(good, _speechlike(rng, 8000), SR)
+    paths = [good]
+    for rate in (SR, 8000):
+        p = str(tmp_path / f"odd{rate}.wav")
+        body = (np.round(_speechlike(rng, 4000) * 3e4).astype("<i2")
+                .tobytes() + b"\1")
+        hdr = b"RIFF" + struct.pack("<I", 36 + len(body) + 1) + b"WAVE"
+        hdr += b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, rate, rate * 2,
+                                     2, 16)
+        with open(p, "wb") as fh:
+            fh.write(hdr + b"data" + struct.pack("<I", len(body)) + body
+                     + b"\0")
+        paths.append(p)
+    _, _, m_t = tdecode.load_audio_many(paths, return_device=True,
+                                        device="cpu")
+    _, _, m_j = jdecode.load_audio_many(paths, return_device=True)
+    assert m_t == m_j == [0, None, None]
+
+
+def test_a_row_that_cannot_be_read_drops_its_file(wav_mix):
+    """A file cut short after its header was read is dropped when its row
+    is read, and the batch is laid out again without it: rows, n_valid and
+    bucket as if the file had never loaded."""
+    direct, converted = tdecode._scan_files(wav_mix, SR, torch.device("cpu"))
+    with open(wav_mix[3], "r+b") as fh:      # the only 5 s file
+        fh.truncate(1000)
+    with tdecode._STAGING.lock:
+        st = tdecode._stage(direct, converted, SR, False)
+        got = st.rows.numpy().copy()
+    assert st.order == [0, 1, 4, 5] and got.shape == (4, 2 * SR)
+    want, order, _ = _sequential_build([p for i, p in enumerate(wav_mix)
+                                        if i != 3])
+    assert got.tobytes() == want.tobytes()
+
+
+def test_concurrent_loads_share_the_staging_batch(tmp_path, rng):
+    """More callers than cores through one staging buffer, with thread
+    switches forced often: every caller gets its own files' rows."""
+    import sys
+    import threading
+
+    paths = []
+    for k in range(12):
+        p = str(tmp_path / f"c{k}.wav")
+        twav.write_wav(p, _speechlike(rng, 4000 + 700 * k, 120.0 + 30 * k,
+                                      noise=0.1), SR)
+        paths.append(p)
+    sets = [paths[k: k + 3] for k in range(10)]
+    want = [tdecode.load_audio_many(s, denoise=False, device="cpu")
+            for s in sets]
+    done, errors = [0] * len(sets), []
+
+    def run(k):
+        try:
+            for _ in range(3):
+                got = tdecode.load_audio_many(sets[k], denoise=False,
+                                              device="cpu")
+                for a, b in zip(got, want[k]):
+                    np.testing.assert_array_equal(a, b)
+                done[k] += 1
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(k,))
+                   for k in range(len(sets))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors and done == [3] * len(sets)

@@ -6,7 +6,8 @@ the bench's hot-path line, int8 decoder weights card vs CPU, two mesh
 ranks sharing the card, two model-sharded ranks with a card each decoding
 through CUDA graphs over NCCL, and the token loop as CUDA graphs (greedy,
 sampling and beam search) against the eager loop. Every test needs a CUDA
-card and skips without one (the NCCL test without two).
+card and skips without one (the NCCL test without two). The lossless audio
+wire on the card is held to the packed wire's gate on the same batch.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without JAX. tests/conftest.py imports JAX, so there run it as:
@@ -271,6 +272,47 @@ def test_gate_on_card_matches_cpu(cuda):
     (y_card, q_card), (y_cpu, q_cpu) = out
     np.testing.assert_allclose(y_card, y_cpu, atol=2e-5)
     assert np.abs(q_card - q_cpu).max() <= 1
+
+
+def test_lossless_wire_on_card_sends_staged_int16(cuda, tmp_path):
+    """On the card the lossless wire sends the staged int16 batch raw: every
+    row read straight into the page-locked staging batch, a gated batch and
+    int16 download equal to the packed wire's gate on the same batch on the
+    card, and a second call that reuses the pinned buffer."""
+    from clearconverse_tpu_torch.audio import decode, denoise, pack, wav
+    rng = np.random.default_rng(3)
+    paths, waves = [], []
+    for k, n in enumerate((480000, 336000, 479667)):
+        t = np.arange(n) / 16000
+        x = (0.3 * np.sin(2 * np.pi * (160 + 40 * k) * t)
+             + rng.standard_normal(n) * 0.002).astype(np.float32)
+        paths.append(str(tmp_path / f"f{k}.wav"))
+        wav.write_wav(paths[-1], x, 16000)
+        waves.append(wav.read_wav_i16(paths[-1])[0])
+    n_valid = np.array([len(w) for w in waves], np.int32)
+    q = np.zeros((len(waves), 480000), np.int16)
+    for row, w in enumerate(waves):
+        q[row, : len(w)] = w
+    pb = pack.pack_i16_batch(q, n_valid, allow_numpy=True)
+    assert pb is not None                  # 12 bits of second-order deltas
+    y, qo = denoise.gate_normalize_packed(
+        *(torch.from_numpy(a).to(cuda) for a in (pb.data, pb.x0, pb.e1)),
+        pb.order == 2, 0.2, torch.from_numpy(n_valid).to(cuda),
+        width=pb.width)
+    want = qo.cpu().numpy().astype(np.float32) / 32767.0
+    for call in range(2):
+        info = {}
+        h, b, m = decode.load_audio_many(
+            paths, noise_reduction_amount=0.2, return_device=True,
+            wire_bits=0, wire_info=info, staging_info=info, device=cuda)
+        assert info["format"] == "int16" and info["width"] == 16
+        assert info["rows_direct"] == len(paths)
+        assert info["rows_converted"] == 0
+        assert m == [0, 1, 2] and torch.equal(b, y)
+        for row in range(len(paths)):
+            np.testing.assert_array_equal(h[row], want[row, : n_valid[row]])
+        assert decode._STAGING.flat.is_pinned()
+    assert info["staging_reused"] == 1
 
 
 def test_store_embeddings_equal_host_on_card(cuda):
