@@ -1,143 +1,109 @@
-"""The comparison that decides ``correct``.
+"""The comparison that decides ``correct``, over the model families a
+configuration names (its ``families``, each ``families/<name>.py``).
 
-Whisper: for each decode call kept from the window, the reference
-recomputes, from the audio rows that call encoded and the prompts it was
-given, the log-probability of every token the program served (log-mel,
-encoder, cross-attention over the whole audio, prefill and each loop step,
-teacher-forced along the served tokens), and sums it per row as the
-program's decode does. Two numbers: ``logprob_gap``, the widest gap,
-over every row of every kept call, between the program's sum (the
-``sum_logprob`` its decode returned) and the reference's, in nats, which a
-single wrong token moves; and ``logprob_gap_mean``, that gap a token
-averaged over the rows, which is steady from seed to seed. Sampled tokens
-are fine: the sum is a function of the logits along the tokens served.
+Each family covers some of the program's models and gives:
 
-Speaker models: for each PyanNet and ECAPA call kept, the reference
-recomputes the output from the audio rows the call took.
-``seg_logprob_gap`` is the widest gap of a powerset log-probability
-(nats); ``embed_gap`` the widest distance of a row's embedding from the
-reference's, over the reference's norm. Rows with no valid frame (the
-padding of a batch, one sample long) have no embedding to judge.
+- ``dims(config)``, ``program_dims(engine)``: the configuration's and the
+  program's widths of its models (``EngineCell`` refuses a mismatch);
+- ``draw(dims, seed, device)``, ``fill(engine, weights)``: the seed's
+  weights in the types they are served in, written over the program's;
+- ``recorder(rng, sample)``: wrappers over the program's calls, with
+  ``active``, ``fault`` (one function of the output, or a dict of them
+  by model), ``kept()`` and ``remove()``; it keeps the call with the most
+  rows and ``sample`` others drawn from ``rng``;
+- ``readings(recorder, dims, seed, device, control)``: the kept calls
+  against the family's plain reference, on the seed's weights drawn anew,
+  once the program's state is freed: ``{"numbers", "control", "counts"}``
+  (``control`` holds the numbers of the reference one precision below the
+  configuration's in the program's place, when asked for);
+- ``run_fields(recorder, dims)`` (optional): what it adds to the ``run``
+  that per-layer metrics read;
+- ``FAULTS``: ``{name: (model, function of the output)}``, faults planted
+  where a model's answer is produced;
+- ``STREAM``: the stream of ``check_rng`` its sample is drawn from.
 
-With ``control``, each number is read a second time with the reference
-at the precision below the configuration's (fp8 operands for bf16
-Whisper, TF32 for the float32 speaker models) in the program's place.
+``Check`` holds one seed's recorders for ``run.py`` and ``control.py``
+alike. A name that two families give (a fault, a run field, a number) is
+an error.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, Iterable
 
 import numpy as np
-import torch
-
-from ccbench.reference import served_logprob_sums
-from ccbench.speaker_reference import ecapa_embeddings, pyannet_logprobs
 
 
-def _unpack(packed: torch.Tensor, mt: int):
-    pk = packed.detach().cpu()
-    return (pk[:, :mt].clone(), pk[:, mt].clone(),
-            pk[:, mt + 1].clone().view(torch.float32).double().numpy())
+def check_rng(seed: int, stream: int) -> np.random.Generator:
+    """The sample of calls kept for the check, drawn from the seed."""
+    return np.random.default_rng([seed % (1 << 63), stream])
 
 
-def whisper_readings(kept: List[dict], dims: dict,
-                     weights: Dict[str, torch.Tensor],
-                     control: bool = False) -> dict:
-    """{"numbers": {"logprob_gap", "logprob_gap_mean"}, "control": the
-    same for the fp8 reference (with ``control``), "rows", "tokens"}."""
-    out = {"numbers": {}, "control": {}, "rows": 0, "tokens": 0}
-    if not kept:
+def _merge(into: dict, part: dict, what: str) -> None:
+    twice = sorted(set(into) & set(part))
+    if twice:
+        raise ValueError(f"{what} given by two families: {twice}")
+    into.update(part)
+
+
+def _fault_table(families: Dict[str, object]) -> dict:
+    """{fault name: (family name, model, function)} over every family."""
+    table: dict = {}
+    for name, fam in families.items():
+        _merge(table, {f: (name, model, fn)
+                       for f, (model, fn) in fam.FAULTS.items()}, "faults")
+    return table
+
+
+class Check:
+    """The check's recorders for one seed: one a family, in the
+    configuration's order, each drawing its sample from its own stream,
+    with the named ``faults`` planted under the timed path."""
+
+    def __init__(self, families: Dict[str, object], seed: int, sample: int,
+                 faults: Iterable[str] = ()):
+        table = _fault_table(families)
+        faults = list(faults)
+        unknown = [f for f in faults if f not in table]
+        if unknown:
+            raise KeyError(f"unknown faults {unknown}; known: {sorted(table)}")
+        self.families = families
+        self.recorders = {name: fam.recorder(check_rng(seed, fam.STREAM),
+                                             sample)
+                          for name, fam in families.items()}
+        for f in faults:
+            name, model, fn = table[f]
+            rec = self.recorders[name]
+            if isinstance(rec.fault, dict):
+                rec.fault[model] = fn
+            else:
+                rec.fault = fn
+
+    def set_active(self, on: bool) -> None:
+        for rec in self.recorders.values():
+            rec.active = on
+
+    def remove(self) -> None:
+        """Restores the program's calls, the last wrapper first."""
+        for rec in reversed(list(self.recorders.values())):
+            rec.remove()
+
+    def run_fields(self, dims: Dict[str, dict]) -> dict:
+        out: dict = {}
+        for name, fam in self.families.items():
+            if hasattr(fam, "run_fields"):
+                _merge(out, fam.run_fields(self.recorders[name], dims[name]),
+                       "run fields")
         return out
-    gaps, per_tok, low_gaps, low_per_tok = [], [], [], []
-    for rec in kept:
-        if rec["beam"]:
-            raise ValueError("beam decodes carry beam scores, not sums of "
-                             "the served tokens' log-probabilities")
-        if rec["timestamp_begin"] >= 0:
-            raise ValueError("timestamp decodes are not scored here")
-        mt = rec["max_tokens"]
-        toks, lens, slp = _unpack(rec["packed"], mt)
-        n_tok = torch.clamp(lens + 1, max=mt).double().numpy()
-        dev = rec["audio"].device
-        kw = dict(w=weights, dims=dims, audio=rec["audio"],
-                  prompts=rec["prompts"].to(dev),
-                  prompt_lens=rec["prompt_lens"].to(dev),
-                  tokens=toks.to(dev), lengths=lens.to(dev),
-                  replicas=rec["replicas"], suppress=rec["suppress"],
-                  blank=rec["blank"], eot=rec["eot"],
-                  suppress_blank=rec["suppress_blank"], max_tokens=mt,
-                  target_len=rec["target_len"])
-        ref = served_logprob_sums(**kw)
-        gaps.append(np.abs(slp - ref))
-        per_tok.append(gaps[-1] / n_tok)
-        if control:
-            low_gaps.append(np.abs(served_logprob_sums(fp8=True, **kw) - ref))
-            low_per_tok.append(low_gaps[-1] / n_tok)
-        out["rows"] += len(slp)
-        out["tokens"] += int(n_tok.sum())
-    out["numbers"] = {"logprob_gap": float(np.concatenate(gaps).max()),
-                      "logprob_gap_mean": float(np.concatenate(per_tok).mean())}
-    if control:
-        out["control"] = {
-            "logprob_gap": float(np.concatenate(low_gaps).max()),
-            "logprob_gap_mean": float(np.concatenate(low_per_tok).mean())}
-    return out
 
-
-def _embed_gap(got: torch.Tensor, ref: torch.Tensor, rows) -> float:
-    d = (got[rows].double() - ref[rows].double()).norm(dim=1)
-    return float((d / ref[rows].double().norm(dim=1).clamp_min(1e-30)).max())
-
-
-def speaker_readings(seg: List[dict], emb: List[dict], dims: dict,
-                     weights: Dict[str, Dict[str, torch.Tensor]],
-                     control: bool = False, row_block: int = 512) -> dict:
-    """{"numbers": {"seg_logprob_gap", "embed_gap"}, "control": the same
-    for the TF32 reference (with ``control``), "seg_rows", "embed_rows"}."""
-    out = {"numbers": {}, "control": {}, "seg_rows": 0, "embed_rows": 0}
-    sides = (False, True) if control else (False,)
-    if seg:
-        worst = {s: 0.0 for s in sides}
-        for rec in seg:
-            got = rec["out"].float()
-            for r0 in range(0, got.shape[0], row_block):
-                a = rec["audio"][r0: r0 + row_block]
-                ref = pyannet_logprobs(weights["pyannet"], dims["pyannet"], a)
-                g = got[r0: r0 + row_block].to(ref.device)
-                worst[False] = max(worst[False], float((g - ref).abs().max()))
-                if control:
-                    low = pyannet_logprobs(weights["pyannet"], dims["pyannet"],
-                                           a, tf32=True)
-                    worst[True] = max(worst[True], float((low - ref).abs().max()))
-            out["seg_rows"] += got.shape[0]
-        out["numbers"]["seg_logprob_gap"] = worst[False]
-        if control:
-            out["control"]["seg_logprob_gap"] = worst[True]
-    if emb:
-        worst = {s: 0.0 for s in sides}
-        for rec in emb:
-            audio, got = rec["audio"], rec["out"].float()
-            B, T = audio.shape
-            lens = rec["lengths"]
-            lens = (torch.full((B,), T, device=audio.device) if lens is None
-                    else lens.to(audio.device))
-            valid = (lens.long() * (1 + T // 160) + T // 2) // T
-            for r0 in range(0, B, row_block):
-                sl = slice(r0, min(B, r0 + row_block))
-                rows = torch.nonzero(valid[sl] > 0).flatten()
-                if not len(rows):
-                    continue
-                ref = ecapa_embeddings(weights["ecapa"], dims["ecapa"],
-                                       audio[sl], lens[sl])
-                worst[False] = max(worst[False], _embed_gap(
-                    got[sl].to(ref.device), ref, rows))
-                if control:
-                    low = ecapa_embeddings(weights["ecapa"], dims["ecapa"],
-                                           audio[sl], lens[sl], tf32=True)
-                    worst[True] = max(worst[True], _embed_gap(low, ref, rows))
-                out["embed_rows"] += len(rows)
-        out["numbers"]["embed_gap"] = worst[False]
-        if control:
-            out["control"]["embed_gap"] = worst[True]
-    return out
+    def readings(self, dims: Dict[str, dict], seed: int, device,
+                 control: bool = False) -> dict:
+        """Every family's readings, one family at a time, so that one
+        family's reference weights are freed before the next is drawn."""
+        out = {"numbers": {}, "control": {}, "counts": {}}
+        for name, fam in self.families.items():
+            r = fam.readings(self.recorders[name], dims[name], seed, device,
+                             control)
+            for side in out:
+                _merge(out[side], r[side], side)
+        return out

@@ -1,5 +1,6 @@
 """Finds a cell's parts by name: the cell in ``BENCHMARK.json``, its
-configuration (``configs/<config>.json``), its traffic mix
+configuration (``configs/<config>.json``), the model families the
+configuration names (``families/<family>.py``), its traffic mix
 (``traffic/<traffic>.json``), the code of the mix's kind
 (``kinds/<kind>.py``), its limits (``limits/<cell>.json``) and the reader
 of each per-layer metric (``metrics/<metric>.py``). A later change adds a
@@ -62,6 +63,16 @@ class Cell:
         """The module of the mix's kind, ``kinds/<kind>.py``: ``generate``,
         ``warm``, ``window`` and ``unit``."""
         return self._module("kinds", self.traffic["kind"])
+
+    def families(self) -> Dict[str, object]:
+        """{name: module of ``families/<name>.py``} for each family the
+        configuration names, in its order (``ccbench/check.py`` says what a
+        family gives)."""
+        names = self.config["families"]
+        if not names or len(set(names)) != len(names):
+            raise ValueError(f"configuration {self.entry['config']!r}: "
+                             f"families {names} must be named once each")
+        return {n: self._module("families", n) for n in names}
 
 
 def readers(cell: Cell) -> Dict[str, Callable]:

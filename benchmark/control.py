@@ -1,15 +1,17 @@
 """Reads the numbers that set a cell's limits, over many seeds in one
-process: the program's own reading, the control's (the reference one
-precision below the configuration's in the program's place: fp8 operands
-for Whisper, TF32 for PyanNet and ECAPA), and planted faults' (each breaks one model's answer).
+process: the program's own reading, the control's (each family's
+reference one precision below the configuration's in the program's
+place), and planted faults' (each breaks one model's answer; a family
+names its own in ``FAULTS``).
 
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3 --seconds 5 [--control] [--fault altered_token,altered_scores]
 
 Each seed gets its own weights and inputs, the mix's warm work and a
 short window at the cell's own load; the calls kept from it are held
-against the reference as ``run.py`` holds them. One JSON line per seed:
-``numbers`` (the program's, or the faulted program's) and, with
-``--control``, ``control``. The benchmark's own runs never run this.
+against the references as ``run.py`` holds them (``ccbench/check.py``).
+One JSON line per seed: ``numbers`` (the program's, or the faulted
+program's), with ``--control`` ``control``, and each family's counts of
+what it checked. The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -38,51 +40,34 @@ def main(argv=None, device: str = "cuda", bench_dir: str = BENCH_DIR,
     ap.add_argument("--fault", default=None)
     args = ap.parse_args(argv)
     import torch
-    from ccbench import check
-    from ccbench.engine_cell import EngineCell, check_rng
-    from ccbench.faults import FAULTS
-    from ccbench.record import DecodeRecorder, SpeakerRecorder
+    from ccbench.check import Check
+    from ccbench.engine_cell import EngineCell
     from ccbench.spec import Cell
-    from ccbench.weights import reference_weights, speaker_weights
 
     cell = Cell(args.workload, bench_dir, root)
     kind, mix = cell.kind(), cell.traffic
+    families = cell.families()
+    faults = args.fault.split(",") if args.fault else ()
     dev = torch.device(device)
     tmp = tempfile.mkdtemp(prefix="ccbench_control_")
     try:
-        ec = EngineCell(cell.config, dev, tmp)
+        ec = EngineCell(cell.config, families, dev, tmp)
         for seed in [int(s) for s in args.seeds.split(",")]:
-            rec = DecodeRecorder(check_rng(seed), mix["check_calls"] - 1)
-            spk = SpeakerRecorder(check_rng(seed, 8), mix["check_calls"] - 1)
-            for name in (args.fault.split(",") if args.fault else []):
-                model, fn = FAULTS[name]
-                if model == "decode":
-                    rec.fault = fn
-                else:
-                    spk.fault[model] = fn
+            chk = Check(families, seed, mix["check_calls"] - 1, faults)
             ec.load_seed(seed)
             inputs = kind.generate(mix, seed, ec.inputs_dir(seed))
             kind.warm(ec, mix, inputs)
-            rec.active = spk.active = True
+            chk.set_active(True)
             win = kind.window(ec, mix, inputs, args.seconds)
-            rec.active = spk.active = False
-            rec.remove()
-            spk.remove()
-            w = check.whisper_readings(
-                rec.kept(), ec.dims, reference_weights(ec.spec, seed, dev),
-                args.control)
-            s = check.speaker_readings(
-                spk.kept("pyannet"), spk.kept("ecapa"), ec.speaker_dims,
-                speaker_weights(ec.speaker_dims, seed, dev), args.control)
+            chk.set_active(False)
+            chk.remove()
+            got = chk.readings(ec.dims, seed, dev, args.control)
             print(json.dumps({
                 "workload": args.workload, "seed": seed, "fault": args.fault,
                 "attempted": win["attempted"], "failed": win["failed"],
-                "numbers": {**w["numbers"], **s["numbers"]},
-                "control": {**w["control"], **s["control"]},
-                "rows": w["rows"], "tokens": w["tokens"],
-                "seg_rows": s["seg_rows"], "embed_rows": s["embed_rows"]}),
-                flush=True)
-            del rec, spk, inputs
+                "numbers": got["numbers"], "control": got["control"],
+                **got["counts"]}), flush=True)
+            del chk, inputs
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
     finally:

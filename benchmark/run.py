@@ -7,7 +7,8 @@ limits and per-layer metrics are found by name (``ccbench/spec.py``).
 Set-up builds the engine, writes the seed's weights, makes the seed's
 inputs and runs the mix's warm work; the window then measures for
 ``--seconds``; the model calls kept from it are held against the plain
-reference (``ccbench/check.py``) once the program's state is freed. The
+references of the configuration's model families (``families/<name>.py``,
+``ccbench/check.py``) once the program's state is freed. The
 mix's kind (``kinds/<kind>.py``) makes the inputs and drives the window.
 ``--trace 0`` prints the cell's end-to-end metrics, ``--trace 1`` its
 per-layer ones. The last line of standard output is the result; the
@@ -71,9 +72,9 @@ def parse(argv):
 
 def main(argv=None, device: str = "cuda", need_card: bool = True,
          fault=None, bench_dir: str = BENCH_DIR, root: str = ROOT) -> int:
-    """One run. ``device``, ``need_card`` and ``fault`` (a name in
-    ``ccbench.faults.FAULTS``) exist for the CPU tests; ``bench_dir`` and
-    ``root`` let a test run a copy."""
+    """One run. ``device``, ``need_card`` and ``fault`` (names, comma
+    separated, of faults the configuration's families plant) exist for the
+    CPU tests; ``bench_dir`` and ``root`` let a test run a copy."""
     args = parse(argv)
     from ccbench.spec import Cell, readers
     cell = Cell(args.workload, bench_dir, root)
@@ -106,23 +107,16 @@ def main(argv=None, device: str = "cuda", need_card: bool = True,
 
 def run_cell(cell, args, dev, tmp, fault, metric_readers) -> dict:
     import torch
-    from ccbench import check
-    from ccbench.engine_cell import EngineCell, check_rng
-    from ccbench.faults import FAULTS
-    from ccbench.record import DecodeRecorder, KernelRecorder, SpeakerRecorder
-    from ccbench.weights import reference_weights, speaker_weights
+    from ccbench.check import Check
+    from ccbench.engine_cell import EngineCell
+    from ccbench.record import KernelRecorder
     from clearconverse_tpu_torch.models import decode_graph
 
     kind, mix = cell.kind(), cell.traffic
-    ec = EngineCell(cell.config, dev, tmp)
-    rec = DecodeRecorder(check_rng(args.seed), mix["check_calls"] - 1)
-    spk = SpeakerRecorder(check_rng(args.seed, 8), mix["check_calls"] - 1)
-    if fault is not None:
-        model, fn = FAULTS[fault]
-        if model == "decode":
-            rec.fault = fn
-        else:
-            spk.fault[model] = fn
+    families = cell.families()
+    ec = EngineCell(cell.config, families, dev, tmp)
+    chk = Check(families, args.seed, mix["check_calls"] - 1,
+                fault.split(",") if fault else ())
     kernels = KernelRecorder() if args.trace else None
     ec.load_seed(args.seed)
     inputs = kind.generate(mix, args.seed, ec.inputs_dir(args.seed))
@@ -130,34 +124,27 @@ def run_cell(cell, args, dev, tmp, fault, metric_readers) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - T0
-    recorders = [r for r in (rec, spk, kernels) if r is not None]
     captures0 = decode_graph.COUNTS["captures"]
-    for r in recorders:
-        r.active = True
+    chk.set_active(True)
+    if kernels is not None:
+        kernels.active = True
     win = kind.window(ec, mix, inputs, args.seconds)
-    for r in recorders:
-        r.active = False
+    chk.set_active(False)
+    if kernels is not None:
+        kernels.active = False
     win["captures_in_window"] = decode_graph.COUNTS["captures"] - captures0
-    run = {"dims": ec.dims, "window": win, "passes": win.get("passes"),
-           "decode_calls": rec.rows_and_steps()}
+    run = {"window": win, "passes": win.get("passes"),
+           **chk.run_fields(ec.dims)}
     if args.trace:
         run["k1_window"] = list(kernels.k1)
         run.update(ec.traced(lambda: kind.unit(ec, mix, inputs), kernels))
         kernels.remove()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     ec.close()
-    rec.remove()
-    spk.remove()
+    chk.remove()
     control = bool(args.control)
-    weights = reference_weights(ec.spec, args.seed, dev)
-    w = check.whisper_readings(rec.kept(), ec.dims, weights, control)
-    del weights
-    s = check.speaker_readings(spk.kept("pyannet"), spk.kept("ecapa"),
-                               ec.speaker_dims,
-                               speaker_weights(ec.speaker_dims, args.seed, dev),
-                               control)
-    side = "control" if control else "numbers"
-    numbers = {**w[side], **s[side]}
+    got = chk.readings(ec.dims, args.seed, dev, control)
+    numbers = got["control" if control else "numbers"]
     checks = {name: {"value": numbers.get(name), "limit": limit}
               for name, limit in cell.limits.items()}
     # A request whose answer never came is wrong, as is a number past its
@@ -165,14 +152,10 @@ def run_cell(cell, args, dev, tmp, fault, metric_readers) -> dict:
     correct = bool(win["attempted"] > 0 and win["failed"] == 0
                    and all(c["value"] is not None and c["value"] <= c["limit"]
                            for c in checks.values()))
-    calls = run["decode_calls"]
+    counts = ", ".join(f"{v} {k}" for k, v in got["counts"].items())
     print(f"run.py: {win.get('units', len(win.get('passes') or []))} units "
           f"in {win['window_s']:.3f} s, {win['attempted']} attempted; "
-          f"{len(calls)} decode calls of {sum(n for n, _, _ in calls)} unique "
-          f"rows and {sum(len(p) * s for _, p, s in calls)} row-steps; "
-          f"checked {w['rows']} decode rows ({w['tokens']} served tokens), "
-          f"{s['seg_rows']} segmentation rows, {s['embed_rows']} embedding "
-          f"rows{' against the control' if control else ''}; "
+          f"checked {counts}{' against the control' if control else ''}; "
           f"card: {_card_line() if dev.type == 'cuda' else 'cpu'}",
           file=sys.stderr)
     if win.get("passes"):

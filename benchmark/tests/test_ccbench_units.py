@@ -18,7 +18,7 @@ from helpers import BENCH_DIR, ROOT, TINY_LIMITS, tiny_copy
 
 import torch  # noqa: E402
 
-from ccbench import check, roofline, speaker_reference, weights  # noqa: E402
+from ccbench import roofline, speaker_reference, weights  # noqa: E402
 from ccbench.spec import Cell, readers  # noqa: E402
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "clearconverse_tpu"}
@@ -127,8 +127,9 @@ def test_decoder_flops_hand_count(dims):
 
 def test_a_timestamp_decode_is_refused():
     rec = {"beam": False, "timestamp_begin": 50364}
+    whisper = Cell("small.en-batch").families()["whisper"]
     with pytest.raises(ValueError, match="timestamp"):
-        check.whisper_readings([rec], SMALL, {})
+        whisper.whisper_readings([rec], SMALL, {})
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():
@@ -259,6 +260,7 @@ def test_a_process_of_the_harness_holds_no_jax():
         "spec, speaker_reference, trace, traffic, weights\n"
         "import run, control\n"
         "spec.Cell('small.en-batch').kind()\n"
+        "spec.Cell('small.en-batch').families()\n"
         "from clearconverse_tpu_torch.pipeline import engine, bundle\n"
         "print(run.forbidden_loaded())\n" % (BENCH_DIR, ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
