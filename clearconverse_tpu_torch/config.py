@@ -96,6 +96,10 @@ class TorchConfig:
     diarization_cluster_threshold: Optional[float] = None
     # Transcription language for multilingual models; .en models ignore it.
     language: Optional[str] = "en"
+    # The overlap separator (models/resepformer.SEPARATORS): "sketch", the
+    # JAX package's layout, or "resepformer-wsj02mix", the published
+    # RE-SepFormer's layout and widths.
+    separator: str = "sketch"
 
 
 def _flag(v: str) -> bool:

@@ -216,6 +216,13 @@ class ModelBundle:
         # When set, every decode call records its stages' spans here (see
         # decoding.greedy_decode); StageTimer(sync=True) times device work.
         self.decode_timer: Optional[StageTimer] = None
+        # When set, the published separator records its spans here
+        # (``sep.{encoder,seg_block,mem_block,decoder}``, see
+        # resepformer.sepformer_separate).
+        self.sep_timer: Optional[StageTimer] = None
+        # What the last separate_batch call ran: rows after the row bucket,
+        # samples, and the published layout's segments.
+        self.last_separation: dict = {}
         # The (data, model) mesh, built at first use from the TorchConfig
         # axes; the serving controller on rank 0 of a mesh.
         self._mesh = None
@@ -352,13 +359,24 @@ class ModelBundle:
             return False
 
     def _load_sepformer(self):
-        """``{model_dir}/resepformer-ft/{encoder,masknet,decoder}.ckpt`` (the
-        reference's fine-tuned triplet) or a seeded random init. The
-        checkpoint's shapes give the dims; the head count and chunk size
-        stay at the production defaults."""
+        """The separator ``TorchConfig.separator`` names. The sketch:
+        ``{model_dir}/resepformer-ft/{encoder,masknet,decoder}.ckpt`` (the
+        reference's fine-tuned triplet) or a seeded random init; the
+        checkpoint's shapes give the dims, the head count and chunk size
+        stay at the production defaults. ``"resepformer-wsj02mix"``, the
+        published layout: a seeded random init (no checkpoint of it is
+        read yet)."""
         import os
         from clearconverse_tpu_torch.models import resepformer as rsf
         from clearconverse_tpu_torch.models.convert import load_torch_state_dict
+        name = self.torch_config.separator
+        if name not in rsf.SEPARATORS:
+            raise ValueError(f"unknown separator {name!r}; known: "
+                             f"{sorted(rsf.SEPARATORS)}")
+        dims = rsf.SEPARATORS[name]
+        if isinstance(dims, rsf.ResepformerDims):
+            self.load_source["sepformer"] = "random_init"
+            return rsf.init_resepformer(dims, seed=1, device=self.device)
         ft = os.path.join(self.model_dir, "resepformer-ft")
         names = ["encoder.ckpt", "masknet.ckpt", "decoder.ckpt"]
         if all(os.path.exists(os.path.join(ft, n)) for n in names):
@@ -1043,16 +1061,36 @@ class ModelBundle:
 
     @_batched
     @torch.no_grad()
-    def separate_batch(self, audio) -> np.ndarray:
+    def separate_batch(self, audio, lengths=None) -> np.ndarray:
         """[B, T] mixtures → [B, T, 2] separated sources (host f32), rows
-        padded to the row bucket on the device."""
+        padded to the row bucket on the device. The published layout reads
+        ``lengths`` ([B] valid samples of each row, all ``T`` when None;
+        padded rows have length 0); the sketch separates the padded rows
+        whole."""
         self._ensure()
-        from clearconverse_tpu_torch.models.resepformer import sepformer_separate
-        (audio,), n_real = self._pad([np.asarray(audio, np.float32)], [0])
+        from clearconverse_tpu_torch.models import resepformer as rsf
+        audio = np.asarray(audio, np.float32)
+        sep, timer = self._sepformer, self.sep_timer
+        segments = 0
+        if isinstance(sep, rsf.Resepformer):
+            if lengths is None:
+                lengths = np.full(len(audio), audio.shape[-1])
+            arrays, n_real = self._pad(
+                [audio, np.asarray(lengths, np.int64)], [0, 0])
+            segments = rsf.resepformer_segments(arrays[1], sep.dims)
+
+            def run(a, n):
+                return rsf.sepformer_separate(sep, a, n, timer)
+        else:
+            arrays, n_real = self._pad([audio], [0])
+
+            def run(a):
+                return rsf.sepformer_separate(sep, a)
+        rows, T = arrays[0].shape
+        self.last_separation = {"rows": rows, "samples": rows * T,
+                                "segments": segments}
         with self._stage_timer.stage("separate_dev"):
-            return self._by_rows(
-                lambda a: sepformer_separate(self._sepformer, a),
-                audio)[:n_real]
+            return self._by_rows(run, *arrays)[:n_real]
 
     # ---------------------------------------------------------- checkpoints
     @_batched
@@ -1067,6 +1105,7 @@ class ModelBundle:
         self._ensure()
         import dataclasses
         import os
+        from clearconverse_tpu_torch.models import resepformer as rsf
         from clearconverse_tpu_torch.models.ecapa import (
             EcapaDims, ecapa_to_state_dict)
         from clearconverse_tpu_torch.models.pyannet import (
@@ -1101,7 +1140,7 @@ class ModelBundle:
                                                  or EcapaDims()),
                 "pyannet_dims": dataclasses.asdict(self._pyannet_dims
                                                    or PyannetDims()),
-                "sepformer_dims": dataclasses.asdict(sep.dims),
+                "sepformer_dims": rsf.dims_to_meta(sep.dims),
             },
         }
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -1139,7 +1178,7 @@ class ModelBundle:
             dims = undims(WhisperDims, meta["whisper_dims"])
             e_dims = undims(ecapa.EcapaDims, meta["ecapa_dims"])
             p_dims = undims(pyannet.PyannetDims, meta["pyannet_dims"])
-            s_dims = undims(rsf.SepformerDims, meta["sepformer_dims"])
+            s_dims = rsf.dims_from_meta(meta["sepformer_dims"])
             sep_tree = rsf.convert_speechbrain_sepformer(*sep_sds, s_dims)
         else:
             dims = infer_whisper_dims(

@@ -75,7 +75,8 @@ class DevModels:
         return out
 
     # -- separation: split by frequency band ------------------------------
-    def separate_batch(self, audio: np.ndarray) -> np.ndarray:
+    def separate_batch(self, audio: np.ndarray,
+                       lengths: Optional[np.ndarray] = None) -> np.ndarray:
         B, T = audio.shape
         out = np.zeros((B, T, 2), np.float32)
         for b in range(B):

@@ -69,6 +69,14 @@ def _run_lock_for(models) -> threading.Lock:
         return lock
 
 
+def _new_separation_counts() -> Dict[str, int]:
+    """A run's separation: ``separate_batch`` calls, the rows they ran
+    (after the bundle's row bucket) and the real ones among them, the
+    samples run and the real ones, and the separator's segments."""
+    return dict.fromkeys(("calls", "rows", "real_rows", "samples",
+                          "real_samples", "segments"), 0)
+
+
 class TranscriptionEngine:
     """Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``):
     the bundle it builds lives there, and so do the audio gate and store.
@@ -99,6 +107,8 @@ class TranscriptionEngine:
             with self._run_lock:
                 models.config = self.config
         self._inflight_hosts: List = []
+        # What the last run separated (see _new_separation_counts).
+        self.last_run_separation: Dict[str, int] = _new_separation_counts()
         if load_models_immediately:
             self.models.load_with_progress()
 
@@ -110,6 +120,20 @@ class TranscriptionEngine:
         return self.models.load_with_progress(progress_callback)
 
     # ------------------------------------------------------------ helpers
+    def _count_separation(self, padded: np.ndarray, lens: np.ndarray) -> None:
+        """Adds one ``separate_batch`` call of ``padded`` rows of ``lens``
+        samples to ``last_run_separation``, with what the bundle says it
+        ran (its row bucket; the padded batch for a bundle that says
+        nothing)."""
+        ran = getattr(self.models, "last_separation", None) or {}
+        c = self.last_run_separation
+        c["calls"] += 1
+        c["real_rows"] += len(lens)
+        c["real_samples"] += int(np.sum(lens))
+        c["rows"] += int(ran.get("rows", padded.shape[0]))
+        c["samples"] += int(ran.get("samples", padded.size))
+        c["segments"] += int(ran.get("segments", 0))
+
     def _diar_kwargs(self) -> Dict[str, float]:
         """Configured diarization hyperparameters (binarization hysteresis
         + AHC cluster threshold). Callers that feed ``vad_intervals`` keep
@@ -388,6 +412,7 @@ class TranscriptionEngine:
         # how its batch was staged (rows read as they are, rows converted,
         # the staging buffer reused).
         self.last_run_wire: Dict[str, object] = {}
+        self.last_run_separation = _new_separation_counts()
         if getattr(self.models, "supports_store", False):
             with run_timer.stage("load_gate"):
                 # Hosts come back as LazyAudio views: the gated batch stays
@@ -820,7 +845,8 @@ class TranscriptionEngine:
                 for idx, padded, lens in batch_audio(
                         span_clips, sr, self.torch_config.duration_buckets, 16):
                     try:
-                        sep = self.models.separate_batch(padded)  # [B,T,2]
+                        sep = self.models.separate_batch(padded, lens)
+                        self._count_separation(padded, lens)
                         for row, j in enumerate(idx):
                             sep_sources[j] = sep[row, : lens[row], :]
                     except ProcessingCancelled:

@@ -209,11 +209,18 @@ def test_default_device_is_cuda():
 
 def test_configs_mirror_the_jax_package():
     """Config is a copy; TorchConfig keeps TPUConfig's defaults for every
-    field, and CC_TORCH_* variables override like CC_TPU_* ones."""
+    field, and CC_TORCH_* variables override like CC_TPU_* ones. The one
+    field of the port's own, the separator, defaults to the JAX package's
+    layout."""
     from clearconverse_tpu_torch.config import Config, torch_config_from_env
     assert dataclasses.asdict(Config()) == dataclasses.asdict(JConfig())
     ours, ref = TorchConfig(), TPUConfig()
+    port_only = {"separator": "sketch"}
     for f in dataclasses.fields(TorchConfig):
+        if f.name in port_only:
+            assert not hasattr(ref, f.name), f.name
+            assert getattr(ours, f.name) == port_only[f.name], f.name
+            continue
         assert getattr(ours, f.name) == getattr(ref, f.name), f.name
     env = {"CC_TORCH_CROSS_KV_BITS": "16", "CC_TORCH_PAD_FULL_WINDOW": "0",
            "CC_TORCH_LANGUAGE": "auto", "CC_TORCH_COMPUTE_DTYPE": "float32",

@@ -383,6 +383,65 @@ def test_separate_batch_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(outs[0], outs[1], rtol=1e-3, atol=1e-4)
 
 
+def test_published_resepformer_batch_on_card_matches_reference_rows(cuda):
+    """The published RE-SepFormer (ResepformerDims(), 7,955,201 weights,
+    seeded) through ModelBundle.separate_batch on the card, 16 rows of
+    mixed lengths padded to the 10 s bucket, each row against the plain
+    float32 reference (benchmark/ccbench/resepformer_reference.py) run on
+    that row alone at its own length: every source within 1e-4 of the
+    reference's norm (IEEE f32 on both sides; the sums of 8 layers and of
+    a different association of products leave about 1e-6)."""
+    import importlib.util
+    import os
+    from clearconverse_tpu_torch.config import TorchConfig
+    from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "ccbench",
+        "resepformer_reference.py")
+    spec = importlib.util.spec_from_file_location("resepformer_reference",
+                                                  path)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+
+    b = ModelBundle(torch_config=TorchConfig(
+        separator="resepformer-wsj02mix"), device=cuda)
+    b._sepformer = b._load_sepformer()
+    b._loaded = True
+    d = b._sepformer.dims
+    assert sum(p.numel() for p in b._sepformer.parameters()) == 7955201
+    rng = np.random.default_rng(29)
+    T = 10 * 16000
+    lens = np.array([T, 5 * 16000 + 1, 6 * 16000 + 7, 9 * 16000, 5 * 16000 + 9,
+                     7 * 16000 + 3, 8 * 16000 - 5, 6 * 16000, 5 * 16000 + 199,
+                     9 * 16000 + 1200, 1200 * 8 + 8, 7 * 16000, 8 * 16000,
+                     T - 1, 5 * 16000 + 4000, 6 * 16000 + 11])
+    t = np.arange(T) / 16000
+    mix = np.zeros((16, T), np.float32)
+    for i, n in enumerate(lens):
+        mix[i, :n] = (0.4 * np.sin(2 * np.pi * rng.uniform(150, 400) * t[:n])
+                      + 0.3 * np.sin(2 * np.pi * rng.uniform(900, 2500) * t[:n])
+                      + 0.02 * rng.standard_normal(n))
+    out = b.separate_batch(mix, lens)
+    assert out.shape == (16, T, 2) and np.isfinite(out).all()
+    assert b.last_separation["rows"] == 16
+    w = dict(b._sepformer.named_parameters())
+    dims = {"N_encoder_out": d.enc_channels, "out_channels": d.d_model,
+            "kernel_size": d.enc_kernel, "kernel_stride": d.enc_stride,
+            "num_spks": d.n_sources, "segment_size": d.segment_size,
+            "layer": d.n_blocks, "num_layers": d.n_layers, "nhead": d.n_heads,
+            "d_ffn": d.d_ffn}
+    worst = 0.0
+    for i, n in enumerate(lens):
+        want = ref.separate_one(w, dims, torch.from_numpy(mix[i, :n]).to(cuda))
+        got = torch.from_numpy(out[i, :n]).to(cuda)
+        gap = ((got.double() - want.double()).norm(dim=0)
+               / want.double().norm(dim=0)).max()
+        worst = max(worst, float(gap))
+    print(f"published RE-SepFormer, 16 rows on the card: widest source gap "
+          f"{worst:.3e}")
+    assert worst < 1e-4
+
+
 # ---------------------------- int4 cross-KV, dress rehearsal, the bench
 
 def test_int4_cross_kv_card_matches_cpu(cuda):

@@ -291,6 +291,18 @@ def test_embed_separate_segment_mesh_equals_single(ranks, single, trees,
                                    rtol=1e-4, atol=1e-5, err_msg=key)
 
 
+def test_published_separator_lengths_mesh_equals_single(ranks, single,
+                                                        inputs):
+    """The published layout's lengths travel with their rows to every data
+    rank (rows of the row bucket with length 0 give zeros)."""
+    got = ranks["speaker"]["separate_lengths"]
+    np.testing.assert_allclose(got, single["speaker"]["separate_lengths"],
+                               rtol=1e-4, atol=1e-5)
+    n = inputs["speaker_lens"][1]
+    assert np.count_nonzero(got[1, n:]) == 0
+    assert np.count_nonzero(got[1, :n]) > 0
+
+
 def test_engine_wavefront_mesh_equals_single(ranks, single, trees, inputs):
     """Rank 0's engine wavefront, its calls followed by the other seven
     ranks, gives the 1x1 texts and JAX's 4x2 texts."""

@@ -102,9 +102,21 @@ def wavefront(b, inputs):
 
 def speaker_half(b, inputs):
     audio, lens = inputs["speaker_audio"], inputs["speaker_lens"]
-    return {"embed": b.embed_batch(audio, lens),
-            "separate": b.separate_batch(audio),
-            "segment": b.segment_frames(audio)}
+    out = {"embed": b.embed_batch(audio, lens),
+           "separate": b.separate_batch(audio),
+           "segment": b.segment_frames(audio)}
+    # The published separator layout at tiny widths, seeded alike on every
+    # rank, with the rows' lengths.
+    from clearconverse_tpu_torch.models import resepformer as rsf
+    sketch = b._sepformer
+    b._sepformer = rsf.init_resepformer(
+        rsf.ResepformerDims(enc_channels=16, n_heads=2, d_ffn=32,
+                            segment_size=6, n_layers=1), 5, b.device)
+    try:
+        out["separate_lengths"] = b.separate_batch(audio, lens)
+    finally:
+        b._sepformer = sketch
+    return out
 
 
 def native_whisper(b):
