@@ -48,7 +48,8 @@ Phases, each fatal on failure:
                the crafted frequency-selective PyanNet at PyannetDims(); one
                cold and two timed passes: RTFx, the stage split with
                overlap_reseg / separation / separate_dev, separation rows per
-               batch, peak memory (the pass's and the separation calls'),
+               batch, the overlap path's separation calls, real rows a call,
+               reseg_calls and source_calls (its embedding calls), peak memory (the pass's and the separation calls'),
                one separation call's split (its intra-chunk attention
                against the whole call), K1/K2 launches. It fails on a file
                without an is_overlap segment, separate_batch never running,
@@ -1107,7 +1108,7 @@ def phase_overlap(profile: bool, model_dir: str):
                 _count_calls(b, name, calls)
             separate = b.separate_batch
 
-            def counted_separate(audio):
+            def counted_separate(audio, lengths=None):
                 """Counts the call and its rows, and takes its own peak
                 device memory (the pass's peak so far is kept first)."""
                 calls["separate_batch"] = calls.get("separate_batch", 0) + 1
@@ -1116,7 +1117,7 @@ def phase_overlap(profile: bool, model_dir: str):
                 peaks["pass"] = max(peaks["pass"],
                                     torch.cuda.max_memory_allocated())
                 torch.cuda.reset_peak_memory_stats()
-                out = separate(audio)
+                out = separate(audio, lengths)
                 peaks["separation"] = max(peaks["separation"],
                                           torch.cuda.max_memory_allocated())
                 return out
@@ -1155,6 +1156,7 @@ def phase_overlap(profile: bool, model_dir: str):
                      "overlap_segments_per_file": overlaps,
                      "separation_rows": list(sep_rows),
                      "calls": dict(calls),
+                     "overlap_path": dict(eng.last_run_separation),
                      "stage_times": dict(eng.last_run_stage_times),
                      "text_chars": sum(len(seg.transcription)
                                        for f in segs for seg in f)}
@@ -1167,6 +1169,12 @@ def phase_overlap(profile: bool, model_dir: str):
                     f"{overlaps}, separation (rows, padded rows, samples) "
                     f"per call {p['separation_rows']}, bundle calls "
                     f"{p['calls']}, transcript chars {p['text_chars']}")
+                ov = p["overlap_path"]
+                log(f"[overlap]   overlap path: separation calls "
+                    f"{ov['calls']}, real rows a call "
+                    f"{ov['real_rows'] / max(ov['calls'], 1):.2f}, "
+                    f"reseg_calls {ov['reseg_calls']}, source_calls "
+                    f"{ov['source_calls']}")
                 split = ", ".join(f"{k} {v:.4f}" for k, v in
                                   sorted(p["stage_times"].items()))
                 log(f"[overlap]   stage split (s): {split}")
@@ -1275,9 +1283,9 @@ def phase_overlap_parity(devices=("cuda", "cpu")):
             n_sep = [0]
             separate = b.separate_batch
 
-            def counted(audio, _f=separate):
+            def counted(audio, lengths=None, _f=separate):
                 n_sep[0] += 1
-                return _f(audio)
+                return _f(audio, lengths)
             b.separate_batch = counted
             t0 = time.perf_counter()
             res, = TranscriptionEngine(cfg, tc, models=b).process_files([path])

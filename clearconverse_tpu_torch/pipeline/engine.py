@@ -70,11 +70,14 @@ def _run_lock_for(models) -> threading.Lock:
 
 
 def _new_separation_counts() -> Dict[str, int]:
-    """A run's separation: ``separate_batch`` calls, the rows they ran
+    """A run's overlap path: ``separate_batch`` calls, the rows they ran
     (after the bundle's row bucket) and the real ones among them, the
-    samples run and the real ones, and the separator's segments."""
+    samples run and the real ones, the separator's segments, and the
+    embedding calls of the resegmentation windows and of the separated
+    sources."""
     return dict.fromkeys(("calls", "rows", "real_rows", "samples",
-                          "real_samples", "segments"), 0)
+                          "real_samples", "segments", "reseg_calls",
+                          "source_calls"), 0)
 
 
 class TranscriptionEngine:
@@ -165,12 +168,14 @@ class TranscriptionEngine:
                     run_timer.spans.append((f"{name}.{k}", delta))
 
     def _embed_many(self, clips: List[np.ndarray], sr: int,
-                    refs: Optional[List] = None) -> List[Optional[np.ndarray]]:
+                    refs: Optional[List] = None,
+                    count: Optional[str] = None) -> List[Optional[np.ndarray]]:
         """Batched embedding honoring the reference's <0.5 s → None rule.
 
         ``refs`` (aligned; entries (store, row, start-sample) or None) route
         clips that are contiguous slices of device-resident audio through
-        store gathers instead of host uploads."""
+        store gathers instead of host uploads. ``count`` names the key of
+        ``last_run_separation`` that counts the device calls."""
         out: List[Optional[np.ndarray]] = [None] * len(clips)
         valid = [i for i, c in enumerate(clips) if len(c) >= MIN_EMBED_S * sr]
         if not valid:
@@ -183,6 +188,8 @@ class TranscriptionEngine:
         for idx, padded, lens in batch_audio([clips[i] for i in host_idx],
                                              sr, buckets, bs):
             embs = self.models.embed_batch(padded, lens)
+            if count:
+                self.last_run_separation[count] += 1
             for row, j in enumerate(idx):
                 out[host_idx[j]] = embs[row]
         if store_idx:
@@ -192,6 +199,8 @@ class TranscriptionEngine:
                     [len(clips[i]) for i in store_idx], sr, buckets, bs):
                 embs = self.models.embed_store(sb.store, sb.rows, sb.starts,
                                                sb.lens, sb.bucket)
+                if count:
+                    self.last_run_separation[count] += 1
                 for j, e in zip(sub, embs):
                     out[store_idx[j]] = e
         return out
@@ -310,50 +319,149 @@ class TranscriptionEngine:
             out.append(profiles)
         return out
 
-    def _resegment_overlaps(self, audio: np.ndarray, sr: int,
-                            overlap_items: List[Tuple[float, float]],
-                            profiles: Dict[str, np.ndarray],
-                            store_ref=None) -> List[List[S.LabeledSegment]]:
+    def _resegment_overlaps(self, jobs: List[Tuple], sr: int
+                            ) -> List[List[List[S.LabeledSegment]]]:
         """Sliding-window re-labeling of each overlap segment
-        (back/api.py:961-1050) with ALL windows of ALL segments embedded in
-        one batch (gathered on the device when ``store_ref`` = (store,
-        row))."""
+        (back/api.py:961-1050) of MANY files, ALL windows of ALL segments
+        embedded in one batch. ``jobs`` holds (audio, overlap_items,
+        profiles, store_ref) per file; a window is gathered on the device
+        when its file's ``store_ref`` = (store, row). Returns each file's
+        spans per overlap segment."""
+        wsize = self.config.sliding_window_size
         windows: List[np.ndarray] = []
         refs: List = []
-        owners: List[Tuple[int, float, float, float]] = []  # (seg, ws, we, step)
-        for si, (seg_start, seg_end) in enumerate(overlap_items):
-            wsize = self.config.sliding_window_size
-            step = self.config.sliding_window_step
-            if (seg_end - seg_start) < 2.0:
-                step = min(step, (seg_end - seg_start) / 4)
-            curr = seg_start
-            while curr + wsize <= seg_end:
-                windows.append(
-                    S.extract_segment_lazy(audio, curr, curr + wsize, sr))
-                refs.append((store_ref[0], store_ref[1],
-                             int(max(curr, 0.0) * sr)) if store_ref else None)
-                owners.append((si, curr, curr + wsize, step))
-                curr += step
+        owners: List[List[Tuple[int, float, float, float]]] = []
+        for audio, overlap_items, _, store_ref in jobs:
+            own = []     # (seg, ws, we, step) per window of this file
+            for si, (seg_start, seg_end) in enumerate(overlap_items):
+                step = self.config.sliding_window_step
+                if (seg_end - seg_start) < 2.0:
+                    step = min(step, (seg_end - seg_start) / 4)
+                curr = seg_start
+                while curr + wsize <= seg_end:
+                    windows.append(
+                        S.extract_segment_lazy(audio, curr, curr + wsize, sr))
+                    refs.append((store_ref[0], store_ref[1],
+                                 int(max(curr, 0.0) * sr)) if store_ref
+                                else None)
+                    own.append((si, curr, curr + wsize, step))
+                    curr += step
+            owners.append(own)
 
-        embs = self._embed_many(windows, sr, refs=refs)
-        results: List[List[Tuple[float, float, str, float]]] = \
-            [[] for _ in overlap_items]
-        prev_by_seg: Dict[int, Optional[str]] = {i: None for i in range(len(overlap_items))}
-        for (si, ws, we, step), emb in zip(owners, embs):
-            if emb is not None and profiles:
-                sims = [(spk, self._cos(emb, prof)) for spk, prof in profiles.items()]
-                spk, conf = S.window_hysteresis(sims, prev_by_seg[si])
-                prev_by_seg[si] = spk
-            else:
-                spk = prev_by_seg[si] or "UNKNOWN"
-                conf = 0.0
-            results[si].append((ws, we, spk, conf))
-
+        embs = iter(self._embed_many(windows, sr, refs=refs,
+                                     count="reseg_calls"))
         out = []
-        for si, (seg_start, seg_end) in enumerate(overlap_items):
-            step = owners[0][3] if owners else self.config.sliding_window_step
-            seg_step = next((o[3] for o in owners if o[0] == si), step)
-            out.append(S.merge_window_labels(results[si], seg_start, seg_end, seg_step))
+        for (_, overlap_items, profiles, _), own in zip(jobs, owners):
+            results: List[List[Tuple[float, float, str, float]]] = \
+                [[] for _ in overlap_items]
+            prev_by_seg: List[Optional[str]] = [None] * len(overlap_items)
+            for si, ws, we, _ in own:
+                emb = next(embs)
+                if emb is not None and profiles:
+                    sims = [(spk, self._cos(emb, prof))
+                            for spk, prof in profiles.items()]
+                    spk, conf = S.window_hysteresis(sims, prev_by_seg[si])
+                    prev_by_seg[si] = spk
+                else:
+                    spk = prev_by_seg[si] or "UNKNOWN"
+                    conf = 0.0
+                results[si].append((ws, we, spk, conf))
+            # A segment without a window takes its file's first step.
+            step = own[0][3] if own else self.config.sliding_window_step
+            out.append([S.merge_window_labels(
+                results[si], seg_start, seg_end,
+                next((o[3] for o in own if o[0] == si), step))
+                for si, (seg_start, seg_end) in enumerate(overlap_items)])
+        return out
+
+    def _separate_spans(self, clips: List[np.ndarray], sr: int
+                        ) -> List[Optional[np.ndarray]]:
+        """Every clip's [T, 2] sources, separated in duration-bucketed
+        batches of 16 rows with their lengths. A call that fails with a
+        non-fatal error leaves its rows None: they keep their mixed
+        clips."""
+        out: List[Optional[np.ndarray]] = [None] * len(clips)
+        for idx, padded, lens in batch_audio(
+                clips, sr, self.torch_config.duration_buckets, 16):
+            try:
+                sep = self.models.separate_batch(padded, lens)
+                self._count_separation(padded, lens)
+                for row, j in enumerate(idx):
+                    out[j] = sep[row, : lens[row], :]
+            except ProcessingCancelled:
+                raise
+            except Exception as exc:  # noqa: BLE001 → the mixed clip
+                if is_fatal(exc):
+                    raise
+                logger.error("Separation failed: %s", exc)
+        return out
+
+    def _best_sources(self, sep_sources: List[Optional[np.ndarray]],
+                      profiles: List[Optional[np.ndarray]], sr: int
+                      ) -> List[Optional[Tuple[np.ndarray, float]]]:
+        """Each separated span's peak-normalised source closest to its
+        speaker's profile (``profiles``, aligned; a span without one takes
+        its first embeddable source) with that similarity, None for a span
+        without one: every span's sources embedded in one batch."""
+        src_clips, src_owner = [], []
+        for j, sep in enumerate(sep_sources):
+            if sep is None:
+                continue
+            for k in range(sep.shape[-1]):
+                src = sep[:, k]
+                src = src / (np.max(np.abs(src)) + 1e-8)
+                src_clips.append(src.astype(np.float32))
+                src_owner.append(j)
+        best: List[Optional[Tuple[np.ndarray, float]]] = \
+            [None] * len(sep_sources)
+        src_embs = self._embed_many(src_clips, sr, count="source_calls")
+        for j, emb, clip in zip(src_owner, src_embs, src_clips):
+            if emb is None:
+                continue
+            prof = profiles[j]
+            simv = self._cos(emb, prof) if prof is not None else 1.0
+            if best[j] is None or simv > best[j][1]:
+                best[j] = (clip, simv)
+        return best
+
+    def _overlap_path(self, plans: List[Dict], timer: StageTimer,
+                      should_cancel: Optional[Callable[[], bool]] = None
+                      ) -> List[Dict]:
+        """Resegmentation, separation and the sources' embeddings of the
+        overlap segments of every file in ``plans``, each phase one batched
+        pass over all the files' work, with a cancel check before each.
+        Returns per plan its spans per overlap segment (``spans_per_seg``),
+        each span's mixed clip (``span_clips``) and its best source with
+        that source's similarity, or None (``best_source``)."""
+        sr = plans[0]["sr"]
+        check_cancel(should_cancel)
+        # The two ranges keep their per-file names at any timer's scope.
+        with timer.stage("overlap_reseg", scope="file"):
+            spans = self._resegment_overlaps(
+                [(p["audio"], [p["refined"][i][:2] for i in p["ov_idx"]],
+                  p["mapped_profiles"],
+                  (p["store"], p["srow"]) if p["store"] is not None
+                  and p["srow"] is not None else None) for p in plans], sr)
+        out = [dict(spans_per_seg=sp, span_clips=[]) for sp in spans]
+        clips, profiles = [], []
+        for p, o in zip(plans, out):
+            for seg_spans in o["spans_per_seg"]:
+                for ss, se, sspk in seg_spans:
+                    o["span_clips"].append(
+                        S.extract_segment(p["audio"], ss, se, sr))
+                    profiles.append(p["mapped_profiles"].get(sspk))
+            clips.extend(o["span_clips"])
+        check_cancel(should_cancel)
+        with timer.stage("separation", scope="file"):
+            sep_sources = self._separate_spans(clips, sr)
+        check_cancel(should_cancel)
+        with timer.stage("source_embeds"):
+            best = self._best_sources(sep_sources, profiles, sr)
+        base = 0
+        for o in out:
+            n = len(o["span_clips"])
+            o["best_source"] = best[base: base + n]
+            base += n
         return out
 
     # ------------------------------------------------------------ main
@@ -563,17 +671,38 @@ class TranscriptionEngine:
                 logger.error("batched segment embeddings failed: %s", exc,
                              exc_info=True)
                 embs_per_file = [None] * len(file_paths)
+        # The overlap path once for the pass: every file's windows, spans
+        # and sources share device batches. Its spans, as a file's own,
+        # land under prepare_files.*.
+        overlap_timer = StageTimer()
+        overlaps: List[Optional[Dict]] = [None] * len(file_paths)
         with self._phase(run_timer, "prepare_files"):
+            planned = [i for i, plan in enumerate(plans) if plan is not None]
+            if planned:
+                try:
+                    shares = self._overlap_path([plans[i] for i in planned],
+                                                overlap_timer, should_cancel)
+                    for i, share in zip(planned, shares):
+                        overlaps[i] = share
+                except ProcessingCancelled:
+                    raise
+                except Exception as exc:  # noqa: BLE001 — per-file fallback
+                    if is_fatal(exc):
+                        raise
+                    logger.error("batched overlap path failed: %s", exc,
+                                 exc_info=True)
             preps = [self._prepare_file(p, should_cancel, preloaded=pre,
                                         plan=plans[i],
-                                        seg_embs=embs_per_file[i])
+                                        seg_embs=embs_per_file[i],
+                                        overlap=overlaps[i])
                      if pre is not None else None
                      for i, (p, pre) in enumerate(zip(file_paths, preloads))]
         with run_timer.stage("merge"):
-            # Per-file sub-stages summed across files: spans recorded
-            # during plan_files as plan_files.*, the rest as prepare_files.*
-            # (the two phases share one timer per file).
-            prep_sub: Dict[str, float] = {}
+            # Per-file sub-stages summed across files, with the pass's
+            # overlap path: spans recorded during plan_files as
+            # plan_files.*, the rest as prepare_files.* (the two phases
+            # share one timer per file).
+            prep_sub: Dict[str, float] = overlap_timer.as_dict()
             plan_sub: Dict[str, float] = {}
             for plan in plans:
                 if plan is not None:
@@ -744,24 +873,32 @@ class TranscriptionEngine:
             is_overlap.append(hit is not None)
             involved.append(hit[2] if hit else [])
 
+        long_enough = [(e - s) >= cfg.min_segment_duration
+                       for s, e, _ in refined]
         non_ov_idx = [i for i, ov in enumerate(is_overlap)
-                      if not ov and (refined[i][1] - refined[i][0]) >= cfg.min_segment_duration]
+                      if not ov and long_enough[i]]
+        ov_idx = [i for i, ov in enumerate(is_overlap)
+                  if ov and long_enough[i]]
         timer.spans.append(("classify", 0.0))
         return dict(file_path=file_path, timer=timer, audio=audio, sr=sr,
                     duration=duration, hyst=hyst, refined=refined,
                     profiles=profiles, mapping=mapping, seg_audio=seg_audio,
                     store=store, srow=srow, seg_ref=seg_ref,
                     is_overlap=is_overlap, involved=involved,
-                    non_ov_idx=non_ov_idx)
+                    non_ov_idx=non_ov_idx, ov_idx=ov_idx,
+                    mapped_profiles={mapping.get(k, k): v
+                                     for k, v in profiles.items()})
 
     def _prepare_file(self, file_path: str,
                       should_cancel: Optional[Callable[[], bool]] = None,
                       preloaded: Optional[Dict] = None,
                       plan: Optional[Dict] = None,
-                      seg_embs: Optional[Dict] = None) -> Optional[Dict]:
+                      seg_embs: Optional[Dict] = None,
+                      overlap: Optional[Dict] = None) -> Optional[Dict]:
         """Turn one file's analysis plan into transcription items.
-        ``plan``/``seg_embs`` come from process_files' batched phases;
-        without them the whole per-file path runs here."""
+        ``plan``/``seg_embs``/``overlap`` (its share of ``_overlap_path``)
+        come from process_files' batched phases; without them the whole
+        per-file path runs here."""
         cfg = self.config
 
         def ck():  # one cancel check per analysis stage boundary
@@ -771,14 +908,12 @@ class TranscriptionEngine:
             if plan is None:
                 plan = self._plan_file(file_path, should_cancel, preloaded)
             timer = plan["timer"]
-            audio, sr = plan["audio"], plan["sr"]
-            duration, hyst = plan["duration"], plan["hyst"]
+            sr, duration, hyst = plan["sr"], plan["duration"], plan["hyst"]
             refined, profiles = plan["refined"], plan["profiles"]
             mapping, seg_audio = plan["mapping"], plan["seg_audio"]
-            store, srow = plan["store"], plan["srow"]
             seg_ref = plan["seg_ref"]
             is_overlap, involved = plan["is_overlap"], plan["involved"]
-            non_ov_idx = plan["non_ov_idx"]
+            non_ov_idx, ov_idx = plan["non_ov_idx"], plan["ov_idx"]
 
             ck()
             with timer.stage("segment_embeddings"):
@@ -821,60 +956,12 @@ class TranscriptionEngine:
                         subs = [(0.0, e - s, "UNKNOWN")]
                     secondary[i] = subs
 
-            # Overlap resegmentation + separation (batched across segments).
-            ov_idx = [i for i, ov in enumerate(is_overlap)
-                      if ov and (refined[i][1] - refined[i][0]) >= cfg.min_segment_duration]
-            mapped_profiles = {mapping.get(k, k): v for k, v in profiles.items()}
-            ck()
-            with timer.stage("overlap_reseg"):
-                spans_per_seg = self._resegment_overlaps(
-                    audio, sr, [(refined[i][0], refined[i][1]) for i in ov_idx],
-                    mapped_profiles,
-                    store_ref=(store, srow) if store is not None
-                    and srow is not None else None)
-
-            # Separate every overlap span in one batch; embed all sources in one.
-            span_clips, span_meta = [], []   # (ov position, span)
-            for pos, spans in enumerate(spans_per_seg):
-                for (ss, se, sspk) in spans:
-                    span_clips.append(S.extract_segment(audio, ss, se, sr))
-                    span_meta.append((pos, ss, se, sspk))
-            sep_sources: List[Optional[np.ndarray]] = [None] * len(span_clips)
-            ck()
-            with timer.stage("separation"):
-                for idx, padded, lens in batch_audio(
-                        span_clips, sr, self.torch_config.duration_buckets, 16):
-                    try:
-                        sep = self.models.separate_batch(padded, lens)
-                        self._count_separation(padded, lens)
-                        for row, j in enumerate(idx):
-                            sep_sources[j] = sep[row, : lens[row], :]
-                    except ProcessingCancelled:
-                        raise
-                    except Exception as exc:  # noqa: BLE001 → the mixed clip
-                        if is_fatal(exc):
-                            raise
-                        logger.error("Separation failed: %s", exc)
-
-            src_clips, src_owner = [], []
-            for j, sep in enumerate(sep_sources):
-                if sep is None:
-                    continue
-                for k in range(sep.shape[-1]):
-                    src = sep[:, k]
-                    src = src / (np.max(np.abs(src)) + 1e-8)
-                    src_clips.append(src.astype(np.float32))
-                    src_owner.append((j, k))
-            src_embs = self._embed_many(src_clips, sr)
-            best_source: Dict[int, Tuple[np.ndarray, float]] = {}
-            for (j, _k), emb, clip in zip(src_owner, src_embs, src_clips):
-                if emb is None:
-                    continue
-                spk = span_meta[j][3]
-                prof = mapped_profiles.get(spk)
-                simv = self._cos(emb, prof) if prof is not None else 1.0
-                if j not in best_source or simv > best_source[j][1]:
-                    best_source[j] = (clip, simv)
+            # Overlap resegmentation, separation and source embeddings.
+            if overlap is None:
+                overlap = self._overlap_path([plan], timer, should_cancel)[0]
+            spans_per_seg = overlap["spans_per_seg"]
+            span_clips = overlap["span_clips"]
+            best_source = overlap["best_source"]
 
             # ---------- phase 2: build transcription items ---------------
             items: List[Dict] = []      # chronological work items
@@ -928,8 +1015,7 @@ class TranscriptionEngine:
                     for (ss, se, sspk) in spans_per_seg[pos]:
                         j = span_cursor
                         span_cursor += 1
-                        clip, conf = best_source.get(
-                            j, (span_clips[j], 0.0))
+                        clip, conf = best_source[j] or (span_clips[j], 0.0)
                         items.append(dict(
                             start=seg_start, end=seg_end, speaker=sspk,
                             audio=clip, is_overlap=True,

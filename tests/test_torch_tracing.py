@@ -174,14 +174,24 @@ def test_a_pass_names_its_stages_by_level(probed_pass):
             assert any(e.inside(o) for o in ranges
                        if o.name == "cc:bundle.decode_dev"), e.name
             assert parents(e) == {"cc:decode_wavefront"}, e.name
-    # The per-file ranges carry their file's index.
-    files = [e for e in ranges if e.name.startswith("cc:file.")]
+    # The overlap path runs once for the pass: its two ranges keep their
+    # per-file names, sit in cc:prepare_files and carry no file index;
+    # every other per-file range carries its file's index.
+    shared = ("cc:file.overlap_reseg", "cc:file.separation")
+    for name in shared:
+        found = [e for e in ranges if e.name == name]
+        assert len(found) == 1, (name, len(found))
+        assert parents(found[0]) == {"cc:prepare_files"} and not found[0].kw
+    files = [e for e in ranges
+             if e.name.startswith("cc:file.") and e.name not in shared]
     assert {e.kw.get("file") for e in files} == {0, 1}
     assert all(not e.kw for e in ranges if not e.name.startswith("cc:file."))
     # The stages the pass records are the top-level ranges, and the
     # shares' fixed keys are still there.
     st = eng.last_run_stage_times
     assert {k for k in st if "." not in k} == set(TOP)
+    assert {"prepare_files.overlap_reseg", "prepare_files.separation",
+            "prepare_files.source_embeds"} <= set(st)
     assert sum(st[k] for k in TOP) <= (pf.b - pf.a) * 1e-9
 
 
