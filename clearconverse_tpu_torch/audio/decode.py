@@ -4,8 +4,8 @@
 (back/api.py:799-838): WAV decodes in audio/wav.py; other containers go
 through an ffmpeg subprocess when the binary exists, keeping the original
 path on failure. ``load_audio_many`` is the engine's batched load: the
-files read in parallel into one reused int16 staging batch, one upload over
-the audio wire, one gate + normalize over the padded batch on the device,
+files read in parallel into one reused int16 staging batch, one upload of
+that batch as it is, one gate + normalize over the padded batch on the device,
 and a download of the gated batch that starts only when a caller first
 reads the bytes (``LazyAudio``).
 """
@@ -430,39 +430,32 @@ def load_audio_many(paths, target_sr: int = TARGET_SR,
                     noise_reduction_amount: float = 0.5,
                     denoise: bool = True, return_device: bool = False,
                     stage_times=None, host_async: bool = False,
-                    wire_bits: int = 16, wire_info=None, device="cuda",
-                    staging_info=None):
+                    wire_info=None, device="cuda", staging_info=None):
     """Batched multi-file load: every file's header first (and the
     conversion of files that are not mono 16-bit PCM at ``target_sr``),
     then the others read in parallel straight into their rows of one
-    reused staging batch, one upload and one gate + normalize over the
-    padded batch on ``device``, and one download.
+    reused int16 staging batch, one upload of that batch as it is and one
+    gate + normalize over the padded batch on ``device``, and one download.
 
     Returns a list aligned with ``paths``: float32 [T] arrays (LazyAudio
     views with ``host_async`` and ``return_device``), or None for files that
     failed to load. With ``return_device=True`` also returns the gated
     device batch [K, T] and a path → row map (the engine's AudioStore).
 
-    ``wire_bits``: 16 = raw int16, 8 = mu-law, 0 = lossless. Lossless sends
-    raw int16 to a CUDA device, from the page-locked staging batch, where
-    packing would cost more host time than it saves on the bus; to any
-    other device it sends the JAX package's delta packing (audio/pack.py;
-    raw int16 when no order fits 13 bits or the native packer is missing),
-    which the CPU tests hold the port to. ``wire_info`` (a dict) receives
-    what crossed the wire: format, width, bytes. ``staging_info`` (a dict)
-    receives ``rows_direct`` (rows read straight into the staging batch),
-    ``rows_converted`` and ``staging_reused`` (1 when the batch fit the
-    buffer the process already had). ``stage_times`` (a dict) receives
-    host_decode, upload_gate and download spans."""
+    The batch goes to a CUDA device without blocking, from the page-locked
+    staging buffer; to any other device as a copy of its rows.
+    ``wire_info`` (a dict) receives what crossed the wire: format, width,
+    bytes. ``staging_info`` (a dict) receives ``rows_direct`` (rows read
+    straight into the staging batch), ``rows_converted`` and
+    ``staging_reused`` (1 when the batch fit the buffer the process already
+    had). ``stage_times`` (a dict) receives host_decode, upload_gate and
+    download spans."""
     def _mark(key: str, t0: float) -> float:
         t1 = time.perf_counter()
         if stage_times is not None:
             stage_times[key] = stage_times.get(key, 0.0) + (t1 - t0)
         return t1
 
-    if wire_bits not in (0, 8, 16):
-        raise ValueError(f"wire_bits must be 0 (lossless packed), 8, or "
-                         f"16, got {wire_bits}")
     device = torch.device(device)
     on_cuda = device.type == "cuda"
     t0 = time.perf_counter()
@@ -470,81 +463,37 @@ def load_audio_many(paths, target_sr: int = TARGET_SR,
     row_map = [None] * len(paths)
     direct, converted = _scan_files(paths, target_sr, device)
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
     with _STAGING.lock:
         staged = _stage(direct, converted, target_sr, pinned=on_cuda)
         if staged is None:
             return (results, None, row_map) if return_device else results
         order, n_outs = staged.order, staged.n_outs
-        q = staged.rows.numpy()
-        packed = None
-        if wire_bits == 8:
-            from clearconverse_tpu_torch.audio.wire import (
-                mulaw_encode_i16_np, mulaw_encode_np)
-            q_up = np.full(q.shape, 128, np.uint8)  # code 128 = 0.0
-            for row, i in enumerate(order):
-                if i not in staged.converted:
-                    q_up[row, : n_outs[row]] = mulaw_encode_i16_np(
-                        q[row, : n_outs[row]])
-                    continue
-                x = staged.converted[i]
-                peak = max(float(np.max(np.abs(x))), 1e-12) if len(x) else 1e-12
-                q_up[row, : len(x)] = mulaw_encode_np(x / peak)
-        elif wire_bits == 0 and not on_cuda:
-            from clearconverse_tpu_torch.audio.pack import pack_i16_batch
-            packed = pack_i16_batch(q, n_outs)
         if wire_info is not None:
-            wire_info["bytes_raw_int16"] = int(q.size) * 2
-            if packed is not None:
-                wire_info.update(format="packed_delta", width=packed.width,
-                                 order=packed.order,
-                                 bytes_wire=int(packed.data.size
-                                                + packed.x0.size * 8))
-            elif wire_bits == 8:
-                wire_info.update(format="mulaw8", width=8,
-                                 bytes_wire=int(q.size))
-            else:
-                wire_info.update(format="int16", width=16,
-                                 bytes_wire=int(q.size) * 2)
+            n_bytes = staged.rows.numel() * 2
+            wire_info.update(bytes_raw_int16=n_bytes, format="int16",
+                             width=16, bytes_wire=n_bytes)
         if staging_info is not None:
             staging_info.update(
                 rows_direct=len(order) - len(staged.converted),
                 rows_converted=len(staged.converted),
                 staging_reused=int(staged.reused))
         t0 = _mark("host_decode", t0)
-        if packed is not None:
-            up = (put(packed.data), put(packed.x0), put(packed.e1))
-        elif wire_bits == 8:
-            up = put(q_up)
-        elif on_cuda:
+        if on_cuda:
             up = staged.rows.to(device, non_blocking=True)
             _STAGING.uploaded = torch.cuda.Event()
             _STAGING.uploaded.record(torch.cuda.current_stream(device))
         else:
             up = staged.rows.clone()
-    dn = bool(denoise and noise_reduction_amount > 0)
     n_valid = torch.tensor(n_outs, dtype=torch.int32, device=device)
-    if packed is not None:
-        batch, q_down = _denoise.gate_normalize_packed(
-            *up, packed.order == 2, noise_reduction_amount, n_valid,
-            sr=target_sr, denoise=dn, width=packed.width)
-    else:
-        gate = (_denoise.gate_normalize_u8 if wire_bits == 8
-                else _denoise.gate_normalize_i16)
-        batch, q_down = gate(up, noise_reduction_amount, n_valid,
-                             sr=target_sr, denoise=dn)
+    batch, q_down = _denoise.gate_normalize_i16(
+        up, noise_reduction_amount, n_valid, sr=target_sr,
+        denoise=bool(denoise and noise_reduction_amount > 0))
     force_sync()
     t0 = _mark("upload_gate", t0)
-    if wire_bits == 8:
-        from clearconverse_tpu_torch.audio.wire import mulaw_decode_np
 
-        def to_host(q):
-            return mulaw_decode_np(q.cpu().numpy())
-    else:
-        def to_host(q):
-            return q.cpu().numpy().astype(np.float32) / 32767.0
+    def to_host(q):
+        return q.cpu().numpy().astype(np.float32) / 32767.0
+
     if host_async and return_device:
         # LazyAudio views over a download thread that starts at the first
         # byte access (or prefetch): the device-side phases all read the

@@ -179,57 +179,18 @@ def spectral_gate_normalized(audio: torch.Tensor, prop_decrease: float,
         audio, sr, prop_decrease, valid_mask(audio.shape[-1], n_valid)))
 
 
-def _gate_norm_f32(x: torch.Tensor, prop_decrease, n_valid, sr: int,
-                   denoise: bool) -> torch.Tensor:
-    """The one gate + normalize body every wire shares: f32 [K, T] (zeros
-    past each row's n_valid) → f32 gated + normalized."""
-    if denoise:
-        return spectral_gate_normalized(x, prop_decrease, n_valid, sr)
-    return peak_normalize(x)
-
-
-def _gate_norm_core(x: torch.Tensor, prop_decrease, n_valid, sr: int,
-                    denoise: bool):
-    """_gate_norm_f32 + the int16 download leg."""
-    y = _gate_norm_f32(x, prop_decrease, n_valid, sr, denoise)
-    q_out = torch.clamp(torch.round(y * 32767.0), -32768, 32767).to(torch.int16)
-    return y, q_out
-
-
 def gate_normalize_i16(q: torch.Tensor, prop_decrease: float,
                        n_valid: torch.Tensor, sr: int = 16000,
                        denoise: bool = True):
-    """int16 [K, T] in → (f32 gated + normalized, int16 of it). The caller
-    pre-scales float rows to their own peak (the gate is scale-invariant
-    and the output is peak-normalized); the f32 result stays on the device
-    as the AudioStore batch."""
+    """int16 [K, T] in (zeros past each row's n_valid) → (f32 gated +
+    normalized, int16 of it for the download). The caller pre-scales float
+    rows to their own peak (the gate is scale-invariant and the output is
+    peak-normalized); the f32 result stays on the device as the AudioStore
+    batch."""
     x = q.to(torch.float32) / 32768.0
-    return _gate_norm_core(x, prop_decrease, n_valid, sr, denoise)
-
-
-def gate_normalize_packed(data: torch.Tensor, x0: torch.Tensor,
-                          e1: torch.Tensor, order2: bool,
-                          prop_decrease: float, n_valid: torch.Tensor,
-                          sr: int = 16000, denoise: bool = True,
-                          width: int = 12):
-    """Lossless delta-packed wire in → (f32 gated + normalized, int16 of
-    it), bit-identical to ``gate_normalize_i16`` on the int16 batch that was
-    packed: the device rebuilds it exactly (audio/pack.unpack_delta), then
-    re-masks the valid region so the packer's padding taper never reaches
-    the gate."""
-    from clearconverse_tpu_torch.audio.pack import unpack_delta
-    xi = unpack_delta(data, x0, e1, order2, width)
-    x = (xi.to(torch.float32) / 32768.0) * valid_mask(xi.shape[-1], n_valid)
-    return _gate_norm_core(x, prop_decrease, n_valid, sr, denoise)
-
-
-def gate_normalize_u8(q: torch.Tensor, prop_decrease: float,
-                      n_valid: torch.Tensor, sr: int = 16000,
-                      denoise: bool = True):
-    """mu-law uint8 in → (f32 gated + normalized, mu-law uint8 of it): the
-    8-bit wire (``wire_bits=8``). Rows are peak-prescaled on the host before
-    encoding."""
-    from clearconverse_tpu_torch.audio.wire import mulaw_encode, mulaw_expand
-    x = mulaw_expand(q) * valid_mask(q.shape[-1], n_valid)
-    y = _gate_norm_f32(x, prop_decrease, n_valid, sr, denoise)
-    return y, mulaw_encode(y)
+    if denoise:
+        y = spectral_gate_normalized(x, prop_decrease, n_valid, sr)
+    else:
+        y = peak_normalize(x)
+    q_out = torch.clamp(torch.round(y * 32767.0), -32768, 32767).to(torch.int16)
+    return y, q_out

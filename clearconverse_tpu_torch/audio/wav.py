@@ -58,12 +58,10 @@ def _scan_chunks(path: str):
         return fmt, fh.read(nbytes)
 
 
-def read_wav_i16(path: str, scanned=None):
+def read_wav_i16(path: str):
     """Mono 16-bit PCM → (int16 [T] samples, rate), or None for any other
-    layout: the native grid goes to the device without a float round trip.
-    ``scanned`` (a prior ``_scan_chunks`` result) skips re-reading the file
-    when the caller probes this path before falling back to read_wav."""
-    fmt, payload = scanned if scanned is not None else _scan_chunks(path)
+    layout: the native grid goes to the device without a float round trip."""
+    fmt, payload = _scan_chunks(path)
     if not is_mono_i16(fmt):
         return None
     return np.frombuffer(payload, dtype="<i2"), fmt[2]
@@ -75,12 +73,10 @@ def is_mono_i16(fmt) -> bool:
     return tag == _PCM and bits == 16 and channels == 1
 
 
-def read_wav(path: str, scanned=None) -> Tuple[np.ndarray, int]:
+def read_wav(path: str) -> Tuple[np.ndarray, int]:
     """Read a WAV file → (float32 samples in [-1, 1] of shape [channels, T],
-    sample_rate). Channel-major, as torchaudio.load returns it. ``scanned``
-    reuses a prior ``_scan_chunks`` result (see read_wav_i16)."""
-    (tag, channels, rate, bits), payload = (
-        scanned if scanned is not None else _scan_chunks(path))
+    sample_rate). Channel-major, as torchaudio.load returns it."""
+    (tag, channels, rate, bits), payload = _scan_chunks(path)
     samples = _decode_pcm(payload, tag, bits)
     if channels > 1:
         usable = (samples.shape[0] // channels) * channels

@@ -22,10 +22,10 @@ Blocks:
     work as trained ones;
   * ``engine``: ``TranscriptionEngine.process_files`` on ``--engine-files``
     files of 60 s of ``synth_conversation_speech()`` tiled five times plus
-    band-limited noise (so the default lossless packed wire engages), with
-    lowered binarization thresholds, 64 tokens and one fallback rung, weights
-    from ``--model-dir``; one cold and ``--engine-repeats`` timed passes,
-    per-pass medians with the raw ``per_pass_s``;
+    band-limited noise, with lowered binarization thresholds, 64 tokens and
+    one fallback rung, weights from ``--model-dir``; one cold and
+    ``--engine-repeats`` timed passes, per-pass medians with the raw
+    ``per_pass_s``;
   * ``engine_ref_default``: the same warm engine at the reference's default
     decode (temperature 0.1 → best_of 5 sampled replicas), after one more
     untimed pass that captures its decode graphs;
@@ -407,7 +407,7 @@ def bench_engine(args, device, budget_s: float, share: dict, tmp: str) -> dict:
         # What crossed the wire; the staging counters would push the last
         # line past its 2,000 characters.
         "wire": {k: v for k, v in engine.last_run_wire.items()
-                 if k in ("format", "width", "order", "bytes_wire")},
+                 if k in ("format", "width", "bytes_wire")},
         "knobs": {"temperature": cfg.temperature,
                   "max_decode_tokens": tc.max_decode_tokens,
                   "max_fallback_attempts": tc.max_fallback_attempts,
@@ -417,7 +417,6 @@ def bench_engine(args, device, budget_s: float, share: dict, tmp: str) -> dict:
                   "pad_to_full_window": tc.pad_to_full_window,
                   "cross_kv_bits": tc.cross_kv_bits,
                   "self_kv_bits": tc.self_kv_bits,
-                  "wire_bits": tc.wire_bits,
                   "transcription_batch_size": cfg.transcription_batch_size,
                   "random_weights": _random_weights(load_source),
                   "load_source": load_source}})

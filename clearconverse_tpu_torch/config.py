@@ -3,7 +3,7 @@
 ``Config`` is a copy of the JAX package's pipeline hyperparameters (same
 fields, same reference defaults). ``TorchConfig`` takes the place of the JAX
 package's ``TPUConfig`` and keeps only the knobs the port reads (the
-transcription program, the mesh axes, the audio wire, diarization), with
+transcription program, the mesh axes, diarization, the separator), with
 the same defaults; ``torch_config_from_env`` mirrors ``tpu_config_from_env`` for them
 under a ``CC_TORCH_*`` prefix. ``load_environment`` reads the server's
 deployment settings (``.env`` and the environment) as the JAX package does.
@@ -80,15 +80,6 @@ class TorchConfig:
     self_kv_bits: int = 16
     # "bfloat16" or "float32" for the matmuls.
     compute_dtype: str = "bfloat16"
-    # Host->device audio wire: 0 = lossless (raw int16 to a CUDA device, from
-    # page-locked memory, where packing costs more host time than it saves
-    # on the bus; elsewhere the JAX package's delta bit-packing, audio/pack.py,
-    # raw int16 when no delta order fits 13 bits or the native packer is
-    # missing), 16 = raw int16, 8 = mu-law (audio/wire.py, lossy, opt-in).
-    wire_bits: int = 0
-    # Download the gated audio on a worker thread that starts at the first
-    # byte access (True) or inside the load stage (False).
-    host_async_download: bool = True
     # Segmentation binarization hysteresis and the AHC cosine-distance merge
     # threshold; None = the 0.5 / 0.5 / 0.7 defaults of pipeline/diarize.
     diarization_onset: Optional[float] = None
@@ -115,13 +106,11 @@ def torch_config_from_env(env: Optional[dict] = None) -> TorchConfig:
         ("CC_TORCH_MODEL_AXIS", "model_axis", int),
         ("CC_TORCH_CROSS_KV_BITS", "cross_kv_bits", int),
         ("CC_TORCH_SELF_KV_BITS", "self_kv_bits", int),
-        ("CC_TORCH_WIRE_BITS", "wire_bits", int),
         ("CC_TORCH_MAX_FALLBACK", "max_fallback_attempts", int),
         ("CC_TORCH_BEST_OF", "best_of", int),
         ("CC_TORCH_BEAM_SIZE", "beam_size", int),
         ("CC_TORCH_COMPUTE_DTYPE", "compute_dtype", str),
         ("CC_TORCH_PAD_FULL_WINDOW", "pad_to_full_window", _flag),
-        ("CC_TORCH_HOST_ASYNC", "host_async_download", _flag),
         ("CC_TORCH_LANGUAGE", "language",
          lambda v: None if v == "auto" else v),
     ):

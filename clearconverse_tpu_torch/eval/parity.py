@@ -105,7 +105,6 @@ def evaluate_file(engine, wav: str, ref_txt: str,
 # eval set once per lever and reports deltas against the baseline, so the
 # sign-off is one command once real checkpoints exist.
 LEVERS: Dict[str, Dict] = {
-    "wire8": {"wire_bits": 8},                         # mu-law audio wire
     "cross_kv_int4": {"cross_kv_bits": 4},             # int4 cross-KV
     "bucketed_window": {"pad_to_full_window": False},  # bucket-length windows
 }
@@ -118,7 +117,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="parity_report")
     ap.add_argument("--levers", action="store_true",
                     help="additionally evaluate each opt-in perf lever "
-                    "(wire8 / int4 cross-KV / bucketed windows) and report "
+                    "(int4 cross-KV / bucketed windows) and report "
                     "WER/DER/RTFx deltas vs the baseline run")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -151,9 +150,7 @@ def main(argv=None) -> int:
         if os.environ.get("CC_TPU_FAKE_MODELS") == "1":
             # Dev stand-ins (the branch of serve/factory.py): the whole
             # recipe, --levers included, runs without checkpoints. The
-            # model-side levers (KV width, window padding) then change
-            # nothing; wire8 still moves the result, because the mu-law
-            # wire quantizes the audio before the stand-ins' features. The
+            # levers (KV width, window padding) then change nothing: the
             # mode validates the harness, not the models.
             from clearconverse_tpu_torch.pipeline.dev_backend import DevModels
             engine = TranscriptionEngine(Config(noise_reduction_amount=0.0),

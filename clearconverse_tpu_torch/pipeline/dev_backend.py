@@ -128,12 +128,9 @@ def synth_conversation_speech(f0_low: float = 120.0, f0_high: float = 210.0,
     and every segment edge is a 10 ms raised-cosine ramp (real speech has
     no instantaneous onsets).
 
-    Its deltas fit 12 bits (order 2), inside real speech's 9-12-bit range,
-    so the default lossless packed wire (audio/pack.py) engages on it; the
-    pure-tone synthetic's 2 kHz carrier and hard steps need 15-16 bits and
-    fall back to raw int16. Band analysis still separates the two speakers:
-    f0 120 Hz keeps most energy <600 Hz, f0 210 Hz spreads harmonics into
-    the 1200+ band via its tilt."""
+    Band analysis still separates the two speakers: f0 120 Hz keeps most
+    energy <600 Hz, f0 210 Hz spreads harmonics into the 1200+ band via its
+    tilt."""
     t = np.arange(12 * SR) / SR
     rng = np.random.default_rng(seed)
 

@@ -512,7 +512,6 @@ class TranscriptionEngine:
         run_timer = StageTimer()
         self.last_run_stage_times = run_timer.as_dict()
         sr0 = self.config.target_sample_rate
-        tc = self.torch_config
         store = None
         row_map: List[Optional[int]] = [None] * len(file_paths)
         load_sub: Dict[str, float] = {}
@@ -528,8 +527,7 @@ class TranscriptionEngine:
                 hosts, dev_batch, row_map = load_audio_many(
                     file_paths, sr0, self.config.noise_reduction_amount,
                     return_device=True, stage_times=load_sub,
-                    host_async=tc.host_async_download,
-                    wire_bits=tc.wire_bits, wire_info=self.last_run_wire,
+                    host_async=True, wire_info=self.last_run_wire,
                     staging_info=self.last_run_wire, device=self.device)
             if dev_batch is not None:
                 # The gated audio stays resident: decode, segmentation and
@@ -548,7 +546,6 @@ class TranscriptionEngine:
                 hosts = load_audio_many(file_paths, sr0,
                                         self.config.noise_reduction_amount,
                                         stage_times=load_sub,
-                                        wire_bits=tc.wire_bits,
                                         wire_info=self.last_run_wire,
                                         staging_info=self.last_run_wire,
                                         device=self.device)

@@ -1,12 +1,12 @@
 """Warm-up for serving deployments of the port.
 
 What a cold server pays on its first requests is the kernels' ``nvcc``
-builds (K1, K2), the native wire packer's ``g++`` build, cuBLAS and cuDNN
-handle creation and algorithm choice for each new shape, the caching
-allocator growing its pools, and, on the card, the capture of the decode
-token loop's CUDA graph for every static key (models/decode_graph.py: one
-graph per row bucket × encoder window × prompt bucket × options, the
-counterpart of the JAX package's warm-up compiling its decode programs).
+builds (K1, K2), cuBLAS and cuDNN handle creation and algorithm choice for
+each new shape, the caching allocator growing its pools, and, on the card,
+the capture of the decode token loop's CUDA graph for every static key
+(models/decode_graph.py: one graph per row bucket × encoder window × prompt
+bucket × options, the counterpart of the JAX package's warm-up compiling its
+decode programs).
 This CLI drives every decode row bucket, then the real engine (the factory
 the serve app uses) over synthetic conversations, so those costs land
 before traffic:

@@ -1,8 +1,8 @@
 """The port's audio path against the JAX package's on the same inputs (numpy
 seeds), with the reference tests' tolerances (tests/test_audio.py), TF32
-pinned off: resample, the spectral gate and the three wire gates, the
-lossless packed wire (bit-exact), the mu-law codec, the native packer, and
-load_audio_many on a 16 kHz int16 WAV and a 44.1 kHz float WAV."""
+pinned off: resample, the spectral gate, the int16 gate, and load_audio_many
+on 16 kHz int16 WAVs and 44.1 kHz float WAVs against the JAX package's int16
+wire, with rows at the edges of a length bucket."""
 
 import struct
 
@@ -14,16 +14,11 @@ import torch
 
 from clearconverse_tpu.audio import decode as jdecode
 from clearconverse_tpu.audio import denoise as jden
-from clearconverse_tpu.audio import pack as jpack
-from clearconverse_tpu.audio import wire as jwire
 from clearconverse_tpu.audio.resample import resample as jresample
 
 from clearconverse_tpu_torch.audio import decode as tdecode
 from clearconverse_tpu_torch.audio import denoise as tden
-from clearconverse_tpu_torch.audio import native
-from clearconverse_tpu_torch.audio import pack as tpack
 from clearconverse_tpu_torch.audio import wav as twav
-from clearconverse_tpu_torch.audio import wire as twire
 from clearconverse_tpu_torch.audio.resample import resample as tresample
 
 # The suite runs several pytest workers on one host; with torch's default of
@@ -82,7 +77,7 @@ def _i16_batch(rng):
     q[0] = np.round(9000 * np.sin(2 * np.pi * 300 * t)
                     + rng.standard_normal(SR) * 150).astype(np.int16)
     # A loud tone with noise (a pure tone's leakage bins sit within rounding
-    # of the gate's threshold), cut at a peak so the packer tapers the pad.
+    # of the gate's threshold), cut at a peak, so the row ends on a step.
     tone = np.round(25000 * np.sin(2 * np.pi * 150 * t)
                     + rng.standard_normal(SR) * 150).astype(np.int16)
     n1 = int(np.argmax(tone[10500:12000])) + 10500 + 1
@@ -90,54 +85,18 @@ def _i16_batch(rng):
     return q, np.array([SR, n1], np.int32)
 
 
+@pytest.mark.parametrize("prop", [0.2, 0.5, 1.0])
 @pytest.mark.parametrize("denoise", [True, False])
-def test_gate_normalize_i16_matches_jax(denoise, rng):
+def test_gate_normalize_i16_matches_jax(denoise, prop, rng):
     q, n_valid = _i16_batch(rng)
-    y, qo = tden.gate_normalize_i16(torch.from_numpy(q), 0.5,
+    y, qo = tden.gate_normalize_i16(torch.from_numpy(q), prop,
                                     torch.from_numpy(n_valid), sr=SR,
                                     denoise=denoise)
-    yr, qr = jden.gate_normalize_i16_jit(jnp.asarray(q), 0.5,
+    yr, qr = jden.gate_normalize_i16_jit(jnp.asarray(q), prop,
                                          jnp.asarray(n_valid), sr=SR,
                                          denoise=denoise)
     np.testing.assert_allclose(y.numpy(), np.asarray(yr), atol=2e-5)
     assert qo.dtype == torch.int16
-    assert np.max(np.abs(qo.numpy().astype(np.int32)
-                         - np.asarray(qr).astype(np.int32))) <= 1
-
-
-@pytest.mark.parametrize("denoise", [True, False])
-def test_gate_normalize_packed_bit_equals_i16_and_matches_jax(denoise, rng):
-    """The packed wire's gate is bit-identical to the int16 wire's on the
-    batch that was packed (the taper never reaches the gate), and within
-    2e-5 of the JAX packed gate."""
-    q, n_valid = _i16_batch(rng)
-    pb = tpack.pack_i16_batch(q.copy(), n_valid)
-    assert pb is not None
-    args = [torch.from_numpy(a) for a in (pb.data, pb.x0, pb.e1)]
-    y, qo = tden.gate_normalize_packed(*args, pb.order == 2, 0.5,
-                                       torch.from_numpy(n_valid), sr=SR,
-                                       denoise=denoise, width=pb.width)
-    y16, q16 = tden.gate_normalize_i16(torch.from_numpy(q), 0.5,
-                                       torch.from_numpy(n_valid), sr=SR,
-                                       denoise=denoise)
-    assert torch.equal(y, y16) and torch.equal(qo, q16)
-    yr, _ = jden.gate_normalize_packed_jit(
-        jnp.asarray(pb.data), jnp.asarray(pb.x0), jnp.asarray(pb.e1),
-        pb.order == 2, 0.5, jnp.asarray(n_valid), sr=SR, denoise=denoise,
-        width=pb.width)
-    np.testing.assert_allclose(y.numpy(), np.asarray(yr), atol=2e-5)
-
-
-def test_gate_normalize_u8_matches_jax(rng):
-    x = np.stack([_speechlike(rng, SR), _speechlike(rng, SR, 500.0)])
-    x[1, 12000:] = 0.0
-    codes = jwire.mulaw_encode_np(x / np.abs(x).max(axis=1, keepdims=True))
-    n_valid = np.array([SR, 12000], np.int32)
-    y, qo = tden.gate_normalize_u8(torch.from_numpy(codes), 0.5,
-                                   torch.from_numpy(n_valid), sr=SR)
-    yr, qr = jden.gate_normalize_u8_jit(jnp.asarray(codes), 0.5,
-                                        jnp.asarray(n_valid), sr=SR)
-    np.testing.assert_allclose(y.numpy(), np.asarray(yr), atol=2e-5)
     assert np.max(np.abs(qo.numpy().astype(np.int32)
                          - np.asarray(qr).astype(np.int32))) <= 1
 
@@ -154,83 +113,6 @@ def test_spectral_gate_normalized_matches_jax(rng):
     np.testing.assert_allclose(
         tden.peak_normalize(torch.from_numpy(x)).numpy(),
         np.asarray(jden.peak_normalize(jnp.asarray(x))), atol=1e-7)
-
-
-@pytest.mark.parametrize("width", [8, 10, 12, 13, 15])
-@pytest.mark.parametrize("order", [1, 2])
-def test_device_unpack_bit_exact_against_jax(width, order, rng):
-    """pack → the port's device unpack equals unpack_delta_jnp bit for bit
-    and rebuilds the valid region of the int16 batch exactly."""
-    T = 4096
-    lim = (1 << (width - 1)) - 1
-    if order == 1:
-        d = rng.integers(-lim, lim + 1, size=(3, T))
-    else:
-        d = np.cumsum(rng.integers(-lim // 4, lim // 4 + 1, size=(3, T)), 1)
-        d = np.clip(d, -lim, lim)
-    x = np.clip(np.cumsum(d, axis=1), -32768, 32767).astype(np.int16)
-    u = np.zeros((3, T), np.int32)
-    x32 = x.astype(np.int32)
-    d1 = np.diff(x32, axis=1)
-    p = d1[:, 1:] if order == 1 else np.diff(d1, axis=1)
-    if np.abs(p).max() > lim:
-        pytest.skip("clipped walk left the width")
-    u[:, 2:] = p + (1 << (width - 1))
-    u[:, :2] = 1 << (width - 1)
-    data = tpack.pack_bits_np(u.astype(np.uint16), width)
-    x0, e1 = x32[:, 0].copy(), d1[:, 0].copy()
-    ours = tpack.unpack_delta(torch.from_numpy(data), torch.from_numpy(x0),
-                              torch.from_numpy(e1), order == 2, width)
-    ref = np.asarray(jpack.unpack_delta_jnp(jnp.asarray(data),
-                                            jnp.asarray(x0), jnp.asarray(e1),
-                                            order == 2, width))
-    assert ours.dtype == torch.int32
-    np.testing.assert_array_equal(ours.numpy(), ref)
-    np.testing.assert_array_equal(ours.numpy(), x32)
-
-
-def test_native_packer_matches_jax_and_numpy_oracle(rng):
-    """The port's own wavcodec build packs the same bytes as the JAX
-    package's native packer and as the numpy oracle."""
-    assert native.get_lib() is not None
-    q, n_valid = _i16_batch(rng)
-    ours = tpack.pack_i16_batch(q.copy(), n_valid)
-    ref = jpack.pack_i16_batch(q.copy(), n_valid)
-    assert (ours.order, ours.width, ours.t) == (ref.order, ref.width, ref.t)
-    for a, b in ((ours.data, ref.data), (ours.x0, ref.x0), (ours.e1, ref.e1)):
-        np.testing.assert_array_equal(a, b)
-    assert native.lib_path().endswith(".so") and "_build" in native.lib_path()
-
-
-def test_pack_without_native_falls_back_unless_numpy(rng, monkeypatch):
-    q, n_valid = _i16_batch(rng)
-    want = tpack.pack_i16_batch(q.copy(), n_valid)
-    monkeypatch.setattr(native, "get_lib", lambda: None)
-    assert tpack.pack_i16_batch(q.copy(), n_valid) is None
-    got = tpack.pack_i16_batch(q.copy(), n_valid, allow_numpy=True)
-    np.testing.assert_array_equal(got.data, want.data)
-    np.testing.assert_array_equal(tpack.unpack_bits_np(got.data, got.width),
-                                  jpack.unpack_bits_np(want.data, want.width))
-
-
-def test_mulaw_codes_identical_to_jax(rng):
-    x = np.concatenate([np.clip(rng.standard_normal(4000) * 0.3, -1, 1),
-                        [0.0, 1.0, -1.0, 1e-6, -1e-6]]).astype(np.float32)
-    np.testing.assert_array_equal(twire.mulaw_encode_np(x),
-                                  jwire.mulaw_encode_np(x))
-    ours = twire.mulaw_encode(torch.from_numpy(x[None])).numpy()
-    ref = np.asarray(jwire.mulaw_encode_jnp(jnp.asarray(x[None])))
-    np.testing.assert_array_equal(ours, ref)
-    w = np.round(x * 20000).astype(np.int16)
-    np.testing.assert_array_equal(twire.mulaw_encode_i16_np(w),
-                                  jwire.mulaw_encode_i16_np(w))
-    codes = np.arange(256, dtype=np.uint8)[None]
-    np.testing.assert_allclose(twire.mulaw_expand(torch.from_numpy(codes)).numpy(),
-                               np.asarray(jwire.mulaw_expand_jnp(
-                                   jnp.asarray(codes))), atol=1e-6)
-    np.testing.assert_allclose(twire.mulaw_decode_np(codes),
-                               jwire.mulaw_decode_np(codes), atol=0)
-    assert twire.mulaw_expand(torch.tensor([[128]], dtype=torch.uint8)).item() == 0.0
 
 
 def _write_float_wav(path, x, rate):
@@ -260,37 +142,40 @@ def two_wavs(tmp_path, rng):
     return [p16, bad, p44]
 
 
-@pytest.mark.parametrize("wire_bits", [0, 16, 8])
-def test_load_audio_many_matches_jax(two_wavs, wire_bits):
-    """Rows, row_map and wire_info equal the JAX package's; gated rows agree
-    within the reference's 1e-4, the device batch too."""
-    kw = dict(noise_reduction_amount=0.4, return_device=True,
-              wire_bits=wire_bits)
+@pytest.mark.parametrize("return_device", [True, False])
+@pytest.mark.parametrize("amount", [0.0, 0.4])
+def test_load_audio_many_matches_jax(two_wavs, amount, return_device):
+    """Rows, row_map and wire_info equal the JAX package's int16 wire; gated
+    rows agree within the reference's 1e-4, the device batch too. Amount 0
+    without the device batch is the dev backend's load."""
+    kw = dict(noise_reduction_amount=amount, return_device=return_device)
     info_t, info_j = {}, {}
-    h_t, b_t, m_t = tdecode.load_audio_many(two_wavs, wire_info=info_t,
-                                            device="cpu", **kw)
-    h_j, b_j, m_j = jdecode.load_audio_many(two_wavs, wire_info=info_j, **kw)
-    assert m_t == m_j == [0, None, 1]
+    out_t = tdecode.load_audio_many(two_wavs, wire_info=info_t,
+                                    device="cpu", **kw)
+    out_j = jdecode.load_audio_many(two_wavs, wire_info=info_j,
+                                    wire_bits=16, **kw)
+    if return_device:
+        (h_t, b_t, m_t), (h_j, b_j, m_j) = out_t, out_j
+        assert m_t == m_j == [0, None, 1]
+        assert tuple(b_t.shape) == tuple(b_j.shape)
+        np.testing.assert_allclose(b_t.numpy(), np.asarray(b_j), atol=1e-4)
+    else:
+        h_t, h_j = out_t, out_j
     assert h_t[1] is None and h_j[1] is None
-    assert info_t == info_j
-    assert tuple(b_t.shape) == tuple(b_j.shape)
-    np.testing.assert_allclose(b_t.numpy(), np.asarray(b_j), atol=1e-4)
+    assert info_t == info_j and info_t["format"] == "int16"
     for a, b in zip(h_t, h_j):
         if a is not None:
-            assert len(a) == len(b)
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-4)
-    if wire_bits == 0:
-        assert info_t["format"] == "packed_delta"
+            assert isinstance(a, np.ndarray) and len(a) == len(b)
+            np.testing.assert_allclose(a, np.asarray(b), atol=1e-4)
 
 
 def test_load_audio_many_async_is_lazy_and_equal(two_wavs):
     stats = {}
     h, b, m = tdecode.load_audio_many(two_wavs, noise_reduction_amount=0.4,
                                       return_device=True, host_async=True,
-                                      stage_times=stats, wire_bits=0,
-                                      device="cpu")
+                                      stage_times=stats, device="cpu")
     sync = tdecode.load_audio_many(two_wavs, noise_reduction_amount=0.4,
-                                   wire_bits=0, device="cpu")
+                                   device="cpu")
     assert isinstance(h[0], tdecode.LazyAudio) and len(h[0]) == len(sync[0])
     assert "download_async" not in stats           # nothing read yet
     clip = tdecode.lazy_slice(h[2], 100, 900)
@@ -310,21 +195,13 @@ def test_load_audio_matches_jax(two_wavs):
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4)
 
 
-def test_read_wav_i16_and_scanned_reuse(two_wavs):
+def test_read_wav_i16_bit_equals_jax(two_wavs):
     from clearconverse_tpu.audio.wav import read_wav_i16 as j_read_i16
-    scanned = twav._scan_chunks(two_wavs[0])
-    q, rate = twav.read_wav_i16(two_wavs[0], scanned=scanned)
+    q, rate = twav.read_wav_i16(two_wavs[0])
     qj, rate_j = j_read_i16(two_wavs[0])
     assert rate == rate_j == SR and q.dtype == np.int16
     np.testing.assert_array_equal(q, qj)
     assert twav.read_wav_i16(two_wavs[2]) is None     # float stereo: no
-    a, _ = twav.read_wav(two_wavs[2], scanned=twav._scan_chunks(two_wavs[2]))
-    np.testing.assert_array_equal(a, twav.read_wav(two_wavs[2])[0])
-
-
-def test_load_audio_many_rejects_unknown_wire(two_wavs):
-    with pytest.raises(ValueError, match="wire_bits"):
-        tdecode.load_audio_many(two_wavs, wire_bits=4, device="cpu")
 
 
 def _write_wav_with_chunks(path, q, rate):
@@ -374,12 +251,11 @@ def _sequential_build(paths):
     waves, order = [], []
     for i, p in enumerate(paths):
         try:
-            scanned = twav._scan_chunks(p)
-            fast = twav.read_wav_i16(p, scanned=scanned)
+            fast = twav.read_wav_i16(p)
             if fast is not None and fast[1] == SR:
                 waves.append(fast[0])
             else:
-                x, sr = twav.read_wav(p, scanned=scanned)
+                x, sr = twav.read_wav(p)
                 mono = x.mean(axis=0).astype(np.float32)
                 n = len(mono)
                 pad = np.pad(mono, (0, tdecode._next_bucket(n, sr) - n))
@@ -421,16 +297,84 @@ def test_staged_batch_equals_the_sequential_build(wav_mix):
                                     torch.from_numpy(n_valid), sr=SR)
     _, _, m_j = jdecode.load_audio_many(wav_mix, noise_reduction_amount=0.4,
                                         return_device=True)
-    for wire_bits in (16, 0):
-        h, b, m = tdecode.load_audio_many(
-            wav_mix, noise_reduction_amount=0.4, return_device=True,
-            wire_bits=wire_bits, device="cpu")
-        assert m == m_j == [0, 1, None, 2, 3, 4]
-        assert torch.equal(b, y)
-        host = qo.numpy().astype(np.float32) / 32767.0
-        for row, i in enumerate(order):
-            np.testing.assert_array_equal(h[i], host[row, : n_valid[row]])
-        assert h[2] is None
+    h, b, m = tdecode.load_audio_many(
+        wav_mix, noise_reduction_amount=0.4, return_device=True,
+        device="cpu")
+    assert m == m_j == [0, 1, None, 2, 3, 4]
+    assert torch.equal(b, y)
+    host = qo.numpy().astype(np.float32) / 32767.0
+    for row, i in enumerate(order):
+        np.testing.assert_array_equal(h[i], host[row, : n_valid[row]])
+    assert h[2] is None
+
+
+# Rows at the edges of a length bucket, as (kind, samples in the file) per
+# file: "i16" a 16 kHz int16 mono WAV read as it is; converted on load, "f44"
+# a 44.1 kHz float stereo WAV, "i8k" and "i48k" int16 mono WAVs at 8 and
+# 48 kHz (16002 and 16000 samples at 16 kHz), "s16" a 16 kHz int16 stereo WAV.
+_EDGE_ROWS = {
+    "odd_short": [("i16", 401)],
+    "bucket_minus_1": [("i16", SR - 1)],
+    "bucket_exact": [("i16", SR)],
+    "bucket_plus_1": [("i16", SR + 1)],
+    "converted": [("f44", 30001)],
+    "converted_8k_int16": [("i8k", 8001)],
+    "converted_48k_int16": [("i48k", 47999)],
+    "converted_stereo_int16": [("s16", SR)],
+    "mixed": [("i16", 401), ("i16", 2 * SR), ("f44", 30001), ("i16", SR + 1)],
+    "mixed_converted": [("i8k", 8001), ("s16", 401), ("i16", SR - 1),
+                        ("i48k", 47999)],
+}
+_EDGE_RATES = {"i16": SR, "i8k": 8000, "i48k": 48000, "s16": SR}
+
+
+@pytest.mark.parametrize("case", sorted(_EDGE_ROWS))
+def test_rows_at_bucket_edges_reach_the_gate_unchanged(case, tmp_path, rng):
+    """The int16 batch reaches the gate as the sequential build makes it at
+    the edges of a row: load_audio_many's gated batch and int16 download
+    equal gate_normalize_i16 of the sequentially built rows bit for bit,
+    are zero past each row's end, and are within 1e-4 of the JAX package's
+    int16 wire."""
+    paths = []
+    for k, (kind, n) in enumerate(_EDGE_ROWS[case]):
+        p = str(tmp_path / f"{k}_{kind}.wav")
+        if kind == "s16":
+            x = np.stack([_speechlike(rng, n, f, noise=0.05)
+                          for f in (170.0, 290.0)])
+            twav.write_wav(p, x, SR)
+        elif kind in _EDGE_RATES:
+            twav.write_wav(p, _speechlike(rng, n, 190.0 + 60 * k, noise=0.05),
+                           _EDGE_RATES[kind])
+        else:
+            t = np.arange(n) / 44100
+            x = np.stack([0.3 * np.sin(2 * np.pi * 170 * t),
+                          0.2 * np.sin(2 * np.pi * 310 * t)])
+            _write_float_wav(p, (x + rng.standard_normal(x.shape) * 0.05)
+                             .astype(np.float32), 44100)
+        paths.append(p)
+    want, order, n_valid = _sequential_build(paths)
+    assert order == list(range(len(paths)))
+    assert want.shape[1] == tdecode._next_bucket(int(max(n_valid)), SR)
+    y, qo = tden.gate_normalize_i16(torch.from_numpy(want), 0.4,
+                                    torch.from_numpy(n_valid), sr=SR)
+    info = {}
+    h, b, m = tdecode.load_audio_many(paths, noise_reduction_amount=0.4,
+                                      return_device=True, wire_info=info,
+                                      staging_info=info, device="cpu")
+    assert m == order and info["bytes_wire"] == want.size * 2
+    assert info["rows_converted"] == sum(
+        kind != "i16" for kind, _ in _EDGE_ROWS[case])
+    assert torch.equal(b, y)
+    host = qo.numpy().astype(np.float32) / 32767.0
+    for row, n in enumerate(n_valid):
+        np.testing.assert_array_equal(h[row], host[row, :n])
+        assert not b[row, n:].any() and not qo[row, n:].any()
+    h_j, b_j, m_j = jdecode.load_audio_many(paths, noise_reduction_amount=0.4,
+                                            return_device=True, wire_bits=16)
+    assert m_j == m
+    np.testing.assert_allclose(b.numpy(), np.asarray(b_j), atol=1e-4)
+    for a, r in zip(h, h_j):
+        np.testing.assert_allclose(a, np.asarray(r), atol=1e-4)
 
 
 def test_staging_is_reused_and_zeroed_past_each_row(monkeypatch, tmp_path,
@@ -448,8 +392,7 @@ def test_staging_is_reused_and_zeroed_past_each_row(monkeypatch, tmp_path,
     for batch in (paths[:3], paths[3:], paths):
         info = {}
         tdecode.load_audio_many(batch, noise_reduction_amount=0.4,
-                                wire_bits=16, device="cpu",
-                                staging_info=info)
+                                device="cpu", staging_info=info)
         seen.append(info["staging_reused"])
         if batch == paths[3:]:
             st, q = _staged(batch)
@@ -461,15 +404,14 @@ def test_staging_is_reused_and_zeroed_past_each_row(monkeypatch, tmp_path,
     assert seen == [0, 1, 0]
 
 
-@pytest.mark.parametrize("wire_bits", [0, 16, 8])
-def test_staging_counts_every_loaded_row(wav_mix, wire_bits):
+def test_staging_counts_every_loaded_row(wav_mix):
     """rows_direct + rows_converted is the number of files that loaded; the
     staging counters leave wire_info as the JAX package writes it."""
     info, wire = {}, {}
-    h = tdecode.load_audio_many(wav_mix, wire_bits=wire_bits, device="cpu",
-                                staging_info=info, wire_info=wire)
+    h = tdecode.load_audio_many(wav_mix, device="cpu", staging_info=info,
+                                wire_info=wire)
     wire_j = {}
-    jdecode.load_audio_many(wav_mix, wire_bits=wire_bits, wire_info=wire_j)
+    jdecode.load_audio_many(wav_mix, wire_bits=16, wire_info=wire_j)
     assert wire == wire_j
     assert info["rows_direct"] == 4 and info["rows_converted"] == 1
     assert info["rows_direct"] + info["rows_converted"] == sum(
