@@ -16,7 +16,10 @@ Phases, each fatal on failure:
                sharded ones included (K2_GRAD_SHAPES), output and q/k/v
                gradients against autograd through the plain version), and
                time kernel, plain version and, where one exists, the single
-               PyTorch library call;
+               PyTorch library call; then the published RE-SepFormer's
+               segment attention and FFN kernels against their plain
+               versions at the overlap cell's call shape (16 rows of 8.3 s,
+               1,776 segments): kernel, plain and bound ms;
   3. slice   — a 2-layer model at small.en's full width, f32: transcribe_batch
                at t=0 on the card (kernels) and on the CPU (plain versions);
                identical tokens and texts, encoder output and prefill logits
@@ -49,9 +52,14 @@ Phases, each fatal on failure:
                cold and two timed passes: RTFx, the stage split with
                overlap_reseg / separation / separate_dev, separation rows per
                batch, the overlap path's separation calls, real rows a call,
-               reseg_calls and source_calls (its embedding calls), peak memory (the pass's and the separation calls'),
+               reseg_calls and source_calls (its embedding calls),
+               fused_attn_layers and fused_ffn_layers (0: the sketch),
+               peak memory (the pass's and the separation calls'),
                one separation call's split (its intra-chunk attention
-               against the whole call), K1/K2 launches. It fails on a file
+               against the whole call), K1/K2 launches; then one
+               separate_batch with the published RE-SepFormer in the
+               sketch's place, whose fused_attn_layers and fused_ffn_layers
+               must read 16 and 24. It fails on a file
                without an is_overlap segment, separate_batch never running,
                a None file, an ERROR record of the port, or K1/K2 not
                launching.
@@ -424,7 +432,82 @@ def phase_kernels(gen: torch.Generator):
         f"{extra['encoder_attention_f32_ms']:.4f} ms")
     extra["encoder_attention_mesh"] = k2_mesh_check(gen)
     extra["encoder_attention_train"] = k2_grad_check(gen)
+    extra["separator"] = separator_kernels(gen)
     return rows, extra
+
+
+# The separator kernels' call shape in small.en-overlap: one separation
+# call of 16 rows of 8.3 s (the cell's mean overlap span), 111 segments of
+# 150 frames a row.
+SEP_ROWS, SEP_SECONDS = 16, 8.3
+
+
+def separator_kernels(gen: torch.Generator):
+    """The published RE-SepFormer's two kernels (ops/sb_attention.py,
+    ops/sb_ffn.py) against their plain versions at the overlap cell's call
+    shape, on a seeded layer, then kernel and plain ms beside the bound:
+    the attention's bytes at 3.35 TB/s or its multiply-adds at the float32
+    FMA rate (67 TFLOP/s); the FFN's bytes or its products as three TF32
+    products each at 495 TFLOP/s."""
+    from clearconverse_tpu_torch.models import resepformer as rsf
+    from clearconverse_tpu_torch.ops import sb_attention as sba
+    from clearconverse_tpu_torch.ops import sb_ffn as sbf
+    dims = rsf.ResepformerDims()
+    model = rsf.init_resepformer(dims, seed=1, device="cuda")
+    lyr = model.masknet.model.seg_model[0].mdl.layers[0]
+    frames = (int(SEP_SECONDS * SR) - dims.enc_kernel) // dims.enc_stride + 1
+    n_seg = SEP_ROWS * (frames // dims.segment_size + 1)
+    T, D, H, Fh = dims.segment_size, dims.d_model, dims.n_heads, dims.d_ffn
+    tokens = n_seg * T
+    out = {"rows": SEP_ROWS, "seconds": SEP_SECONDS, "segments": n_seg}
+
+    qkv = torch.randn((n_seg, T, 3 * D), generator=gen, device="cuda")
+    got = sba.seg_attention(qkv, H)
+    want = sba.seg_attention_plain(qkv, H)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = err <= 1e-5 * float(want.abs().max())
+    log(f"[kernels] separator seg_attention {tuple(qkv.shape)}: max err "
+        f"{err:.3g} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("seg_attention disagrees with its plain version")
+    del got, want
+    b_ms, b_by = bound_ms(4 * tokens * 4 * D, 4 * n_seg * T * T * D, "float32")
+    out["seg_attention"] = {
+        "source": "clearconverse_tpu_torch/csrc/sb_attention.cu",
+        "max_abs_err": err, "ms": time_ms(lambda: sba.seg_attention(qkv, H)),
+        "plain_ms": time_ms(lambda: sba.seg_attention_plain(qkv, H), iters=3),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del qkv
+
+    fc1, fc2 = lyr.pos_ffn.ffn[0], lyr.pos_ffn.ffn[3]
+    p = (lyr.norm2.norm.weight, lyr.norm2.norm.bias, fc1.weight, fc1.bias,
+         fc2.weight, fc2.bias)
+    h = torch.randn((tokens, D), generator=gen, device="cuda")
+    got = sbf.sb_ffn(h, *p)
+    want = sbf.sb_ffn_plain(h, *p)
+    torch.cuda.synchronize()
+    err = float((got - want).norm() / (want - h).norm())
+    ok = err <= 3e-6
+    log(f"[kernels] separator sb_ffn {tuple(h.shape)}: error {err:.3g} of the "
+        f"sublayer's norm (limit 3e-6) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("sb_ffn disagrees with its plain version")
+    del got, want
+    b_ms, b_by = bound_ms(4 * (2 * tokens * D + 4 * D * Fh),
+                          3 * 4 * tokens * D * Fh, "tfloat32")
+    out["sb_ffn"] = {
+        "source": "clearconverse_tpu_torch/csrc/sb_ffn.cu",
+        "rel_err": err, "ms": time_ms(lambda: sbf.sb_ffn(h, *p)),
+        "plain_ms": time_ms(lambda: sbf.sb_ffn_plain(h, *p), iters=3),
+        "bound_ms": b_ms, "bound_by": b_by}
+    for name in ("seg_attention", "sb_ffn"):
+        r = out[name]
+        log(f"[kernels] separator {name} at {SEP_ROWS} rows of {SEP_SECONDS} s "
+            f"({n_seg} segments): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    return out
 
 
 # K2 at the shapes the mesh paths give it, each rank with its own heads:
@@ -1077,6 +1160,41 @@ def separation_split(model, rows: int):
     return out
 
 
+def published_separation(b):
+    """One separate_batch call through ``b`` with the published
+    RE-SepFormer (seeded) in the sketch's place, SEP_ROWS rows of mixed
+    lengths up to SEP_SECONDS: its time and the layers that ran the two
+    separator kernels, which must be 16 (attention: every segment-block
+    layer) and 24 (FFN: every layer of the three blocks)."""
+    from clearconverse_tpu_torch.models import resepformer as rsf
+    sketch = b._sepformer
+    b._sepformer = rsf.init_resepformer(rsf.ResepformerDims(), seed=1,
+                                        device="cuda")
+    rsf.prepare_kernels(b._sepformer)
+    try:
+        rng = np.random.default_rng(3)
+        T = int(SEP_SECONDS * SR)
+        lens = np.linspace(0.15, 1.0, SEP_ROWS) * T
+        lens = lens.astype(np.int64)
+        mix = (0.3 * rng.standard_normal((SEP_ROWS, T))).astype(np.float32)
+        mix[np.arange(T)[None, :] >= lens[:, None]] = 0.0
+        b.separate_batch(mix, lens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.separate_batch(mix, lens)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        ran = dict(b.last_separation)
+    finally:
+        b._sepformer = sketch
+    log(f"[overlap] published RE-SepFormer, one separate_batch of "
+        f"{SEP_ROWS} rows up to {SEP_SECONDS} s: {wall_ms:.1f} ms, "
+        f"fused_attn_layers {ran['fused_attn_layers']}, fused_ffn_layers "
+        f"{ran['fused_ffn_layers']}")
+    if (ran["fused_attn_layers"], ran["fused_ffn_layers"]) != (16, 24):
+        raise SystemExit(f"published separator: kernel layers {ran}")
+    return {"wall_ms": wall_ms, **ran}
+
+
 def phase_overlap(profile: bool, model_dir: str):
     """The overlap path at full width through process_files, weights from
     ``model_dir``; then one word-timestamp transcription call. Returns
@@ -1174,7 +1292,9 @@ def phase_overlap(profile: bool, model_dir: str):
                     f"{ov['calls']}, real rows a call "
                     f"{ov['real_rows'] / max(ov['calls'], 1):.2f}, "
                     f"reseg_calls {ov['reseg_calls']}, source_calls "
-                    f"{ov['source_calls']}")
+                    f"{ov['source_calls']}, fused_attn_layers "
+                    f"{ov['fused_attn_layers']}, fused_ffn_layers "
+                    f"{ov['fused_ffn_layers']}")
                 split = ", ".join(f"{k} {v:.4f}" for k, v in
                                   sorted(p["stage_times"].items()))
                 log(f"[overlap]   stage split (s): {split}")
@@ -1189,6 +1309,7 @@ def phase_overlap(profile: bool, model_dir: str):
                     if profile else None)
             sep_split = separation_split(b._sepformer,
                                          passes[-1]["separation_rows"][0][1])
+            published = published_separation(b)
 
             # One word-timestamp call at full width: 8 rows of 6 s.
             wave = read_wav(paths[0])[0][0]
@@ -1222,6 +1343,7 @@ def phase_overlap(profile: bool, model_dir: str):
     b.separate_batch = separate
     return ({"load_s": load_s, "passes": passes, "launches": launches,
              "profile": prof, "separation_split": sep_split,
+             "published_separation": published,
              "align": {"wall_s": align_wall,
                                         "words_per_row": [len(w) for w in words],
                                         "launches": align_launches}}, eng)

@@ -45,6 +45,13 @@ in f32, so the numerics track the reference.
   ``ConvTranspose1d(N, 1, L, stride L/2, no bias)``, trimmed or padded to
   the input's length.
 
+On the card the published model's segment-block attention (softmax(q kᵀ)v
+between the in- and out-projections) and every layer's LN2 → FFN → residual
+run as two hand-written kernels at float32 accuracy (``ops/sb_attention.py``,
+float32 FMA; ``ops/sb_ffn.py``, 3xTF32 on the tensor cores), which keep the
+scores and the hidden on the SM; on the CPU as their plain versions, the
+same operations as before the kernels.
+
 The memory block attends over the segments of one input (speechbrain folds
 the batch into that sequence: the same at a batch of one). Its submodules
 carry speechbrain's names (``masknet.model.seg_model.0.mdl.layers.0
@@ -68,6 +75,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd import profiler as _profiler
 
+from clearconverse_tpu_torch.ops import sb_attention, sb_ffn
 from clearconverse_tpu_torch.utils.precision import full_f32
 from clearconverse_tpu_torch.utils.tracing import StageTimer
 
@@ -565,20 +573,17 @@ def _sb_layer_norm(x: torch.Tensor, n: _SbNorm) -> torch.Tensor:
 
 def _sb_mha(x: torch.Tensor, att: nn.MultiheadAttention,
             key_ok: Optional[torch.Tensor]) -> torch.Tensor:
-    """Self-attention over [B, T, d]; ``key_ok`` [B, T] masks keys."""
-    B, T, D = x.shape
+    """Self-attention over [B, T, d]; ``key_ok`` [B, T] masks keys. The
+    segment blocks' unmasked attention goes through the segment attention
+    kernel (``ops/sb_attention.py``) where it takes the shape; the memory
+    block's masked one stays on its plain version."""
+    qkv = F.linear(x, att.in_proj_weight, att.in_proj_bias)
     H = att.num_heads
-    dh = D // H
-    q, k, v = F.linear(x, att.in_proj_weight, att.in_proj_bias).chunk(3, -1)
-    q = q.reshape(B, T, H, dh).transpose(1, 2) * dh ** -0.5
-    k = k.reshape(B, T, H, dh).transpose(1, 2)
-    v = v.reshape(B, T, H, dh).transpose(1, 2)
-    s = torch.matmul(q, k.transpose(-1, -2))
-    if key_ok is not None:
-        s = s.masked_fill(~key_ok[:, None, None, :], float("-inf"))
-    o = torch.matmul(torch.softmax(s, dim=-1), v)
-    return F.linear(o.transpose(1, 2).reshape(B, T, D), att.out_proj.weight,
-                    att.out_proj.bias)
+    if sb_attention.fused(qkv.shape, H, key_ok):
+        o = sb_attention.seg_attention(qkv, H)
+    else:
+        o = sb_attention.seg_attention_plain(qkv, H, key_ok)
+    return F.linear(o, att.out_proj.weight, att.out_proj.bias)
 
 
 def _global_norm(x: torch.Tensor, n: _GlobalLayerNorm,
@@ -604,12 +609,28 @@ def _sb_block(x: torch.Tensor, blk: _SbBlock,
     h = x + pe
     for lyr in blk.mdl.layers:
         h = h + _sb_mha(_sb_layer_norm(h, lyr.norm1), lyr.self_att.att, ok)
-        ffn = lyr.pos_ffn.ffn
-        h = h + F.linear(F.relu(F.linear(_sb_layer_norm(h, lyr.norm2),
-                                         ffn[0].weight, ffn[0].bias)),
-                         ffn[3].weight, ffn[3].bias)
+        fc1, fc2 = lyr.pos_ffn.ffn[0], lyr.pos_ffn.ffn[3]
+        # LN2, fc1, ReLU, fc2 and the residual: one kernel where it takes
+        # the widths (ops/sb_ffn.py), the plain version otherwise.
+        ffn = (sb_ffn.sb_ffn if sb_ffn.fused(h.shape[-1], fc1.out_features)
+               else sb_ffn.sb_ffn_plain)
+        h = ffn(h, lyr.norm2.norm.weight, lyr.norm2.norm.bias, fc1.weight,
+                fc1.bias, fc2.weight, fc2.bias, 1e-6)
     h = _sb_layer_norm(h, blk.mdl.norm)
     return _global_norm(h, blk.norm, ok) + x
+
+
+def prepare_kernels(model: nn.Module) -> None:
+    """Splits the feed-forward weights of a published separator on the card
+    for ``ops/sb_ffn.py``'s kernel once, ahead of its first call (the
+    kernel's wrapper splits them again when they change); nothing for the
+    sketch or on the CPU."""
+    if not isinstance(model, Resepformer):
+        return
+    pipe = model.masknet.model
+    for blk in (*pipe.seg_model, *pipe.mem_model):
+        for lyr in blk.mdl.layers:
+            sb_ffn.prepare(lyr.pos_ffn.ffn[0].weight, lyr.pos_ffn.ffn[3].weight)
 
 
 def _span(timer: Optional[StageTimer], name: str):

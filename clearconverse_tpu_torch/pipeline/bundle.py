@@ -221,7 +221,8 @@ class ModelBundle:
         # resepformer.sepformer_separate).
         self.sep_timer: Optional[StageTimer] = None
         # What the last separate_batch call ran: rows after the row bucket,
-        # samples, and the published layout's segments.
+        # samples, the published layout's segments, and the separator layers
+        # that ran its two kernels (ops/sb_attention.py, ops/sb_ffn.py).
         self.last_separation: dict = {}
         # The (data, model) mesh, built at first use from the TorchConfig
         # axes; the serving controller on rank 0 of a mesh.
@@ -376,7 +377,9 @@ class ModelBundle:
         dims = rsf.SEPARATORS[name]
         if isinstance(dims, rsf.ResepformerDims):
             self.load_source["sepformer"] = "random_init"
-            return rsf.init_resepformer(dims, seed=1, device=self.device)
+            model = rsf.init_resepformer(dims, seed=1, device=self.device)
+            rsf.prepare_kernels(model)
+            return model
         ft = os.path.join(self.model_dir, "resepformer-ft")
         names = ["encoder.ckpt", "masknet.ckpt", "decoder.ckpt"]
         if all(os.path.exists(os.path.join(ft, n)) for n in names):
@@ -1069,6 +1072,7 @@ class ModelBundle:
         whole."""
         self._ensure()
         from clearconverse_tpu_torch.models import resepformer as rsf
+        from clearconverse_tpu_torch.ops import sb_attention, sb_ffn
         audio = np.asarray(audio, np.float32)
         sep, timer = self._sepformer, self.sep_timer
         segments = 0
@@ -1087,10 +1091,14 @@ class ModelBundle:
             def run(a):
                 return rsf.sepformer_separate(sep, a)
         rows, T = arrays[0].shape
-        self.last_separation = {"rows": rows, "samples": rows * T,
-                                "segments": segments}
+        attn0, ffn0 = sb_attention.seg_attention.launches, sb_ffn.sb_ffn.launches
         with self._stage_timer.stage("separate_dev"):
-            return self._by_rows(run, *arrays)[:n_real]
+            out = self._by_rows(run, *arrays)[:n_real]
+        self.last_separation = {
+            "rows": rows, "samples": rows * T, "segments": segments,
+            "fused_attn_layers": sb_attention.seg_attention.launches - attn0,
+            "fused_ffn_layers": sb_ffn.sb_ffn.launches - ffn0}
+        return out
 
     # ---------------------------------------------------------- checkpoints
     @_batched
@@ -1198,6 +1206,7 @@ class ModelBundle:
                                                         self.device)
         self._sepformer = rsf.sepformer_from_jax_params(sep_tree, s_dims,
                                                         self.device)
+        rsf.prepare_kernels(self._sepformer)
         self.load_source = {f: "payload" for f in
                             ("whisper", "ecapa", "pyannet", "sepformer")}
         self.load_source["tokenizer"] = type(tok).__name__

@@ -72,11 +72,13 @@ def _run_lock_for(models) -> threading.Lock:
 def _new_separation_counts() -> Dict[str, int]:
     """A run's overlap path: ``separate_batch`` calls, the rows they ran
     (after the bundle's row bucket) and the real ones among them, the
-    samples run and the real ones, the separator's segments, and the
+    samples run and the real ones, the separator's segments, its layers
+    that ran the segment attention and feed-forward kernels, and the
     embedding calls of the resegmentation windows and of the separated
     sources."""
     return dict.fromkeys(("calls", "rows", "real_rows", "samples",
-                          "real_samples", "segments", "reseg_calls",
+                          "real_samples", "segments", "fused_attn_layers",
+                          "fused_ffn_layers", "reseg_calls",
                           "source_calls"), 0)
 
 
@@ -135,7 +137,8 @@ class TranscriptionEngine:
         c["real_samples"] += int(np.sum(lens))
         c["rows"] += int(ran.get("rows", padded.shape[0]))
         c["samples"] += int(ran.get("samples", padded.size))
-        c["segments"] += int(ran.get("segments", 0))
+        for key in ("segments", "fused_attn_layers", "fused_ffn_layers"):
+            c[key] += int(ran.get(key, 0))
 
     def _diar_kwargs(self) -> Dict[str, float]:
         """Configured diarization hyperparameters (binarization hysteresis

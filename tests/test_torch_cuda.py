@@ -431,6 +431,10 @@ def test_published_resepformer_batch_on_card_matches_reference_rows(cuda):
     out = b.separate_batch(mix, lens)
     assert out.shape == (16, T, 2) and np.isfinite(out).all()
     assert b.last_separation["rows"] == 16
+    # Every segment-block layer through the attention kernel, every layer
+    # of the three blocks through the FFN kernel.
+    assert b.last_separation["fused_attn_layers"] == 16
+    assert b.last_separation["fused_ffn_layers"] == 24
     w = dict(b._sepformer.named_parameters())
     dims = {"N_encoder_out": d.enc_channels, "out_channels": d.d_model,
             "kernel_size": d.enc_kernel, "kernel_stride": d.enc_stride,
@@ -446,7 +450,97 @@ def test_published_resepformer_batch_on_card_matches_reference_rows(cuda):
         worst = max(worst, float(gap))
     print(f"published RE-SepFormer, 16 rows on the card: widest source gap "
           f"{worst:.3e}")
-    assert worst < 1e-4
+    assert worst <= 2e-6
+
+
+def _sb_rows(seed):
+    """Activations of the published separator's shapes from 16 rows of
+    mixed lengths (1.2-10 s): the segment blocks' [segments, 150, 128] and
+    the memory block's [16, segments of the longest row, 128]."""
+    from clearconverse_tpu_torch.models import resepformer as rsf
+    d = rsf.ResepformerDims()
+    lens = np.linspace(1.2, 10.0, 16) * 16000
+    n_seg = rsf.resepformer_segments(lens.astype(np.int64), d)
+    s_max = rsf.resepformer_segments([int(lens[-1])], d)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    seg = torch.randn((n_seg, d.segment_size, d.d_model), generator=g,
+                      device="cuda")
+    mem = torch.randn((16, s_max, d.d_model), generator=g, device="cuda")
+    return seg, mem
+
+
+@pytest.mark.parametrize("kernel", ["attention", "ffn"])
+def test_separator_kernels_match_plain_at_published_widths(cuda, kernel):
+    """Each separator kernel (ops/sb_attention.py, ops/sb_ffn.py) against
+    its plain version on a layer of the published RE-SepFormer (seeded), at
+    the shapes 16 rows of mixed lengths give: the attention on every
+    segment (float32 FMA: within 1e-5 of the output's largest), the FFN on
+    the segment rows and on the memory block's (3xTF32: within 3e-6 of the
+    sublayer's norm, which float32 rounding in another order leaves at
+    about 1e-6; one TF32 product a product leaves 4e-4)."""
+    from clearconverse_tpu_torch.models import resepformer as rsf
+    from clearconverse_tpu_torch.ops import sb_attention as sba
+    from clearconverse_tpu_torch.ops import sb_ffn as sbf
+    model = rsf.init_resepformer(rsf.ResepformerDims(), seed=3, device=cuda)
+    lyr = model.masknet.model.seg_model[0].mdl.layers[2]
+    seg, mem = _sb_rows(11)
+    if kernel == "attention":
+        att = lyr.self_att.att
+        qkv = torch.nn.functional.linear(rsf._sb_layer_norm(seg, lyr.norm1),
+                                         att.in_proj_weight, att.in_proj_bias)
+        before = sba.seg_attention.launches
+        got = sba.seg_attention(qkv, 8)
+        want = sba.seg_attention_plain(qkv, 8)
+        torch.cuda.synchronize()
+        assert sba.seg_attention.launches == before + 1
+        err = float((got - want).abs().max())
+        print(f"segment attention {tuple(qkv.shape)}: max err {err:.3g}")
+        assert err <= 1e-5 * float(want.abs().max())
+        return
+    fc1, fc2 = lyr.pos_ffn.ffn[0], lyr.pos_ffn.ffn[3]
+    p = (lyr.norm2.norm.weight, lyr.norm2.norm.bias, fc1.weight, fc1.bias,
+         fc2.weight, fc2.bias)
+    for h in (seg, mem):
+        before = sbf.sb_ffn.launches
+        got = sbf.sb_ffn(h, *p)
+        want = sbf.sb_ffn_plain(h, *p)
+        torch.cuda.synchronize()
+        assert sbf.sb_ffn.launches == before + 1
+        err = float((got - want).norm() / (want - h).norm())
+        print(f"fused FFN {tuple(h.shape)}: error {err:.3g} of the sublayer")
+        assert err <= 3e-6
+
+
+def test_separator_ffn_follows_its_weights_on_card(cuda):
+    """The FFN kernel's split weights are made again after the weights
+    change in place (as the benchmark's weights are written over a built
+    separator), and the wrappers refuse what their kernels do not take."""
+    from clearconverse_tpu_torch.models import resepformer as rsf
+    from clearconverse_tpu_torch.ops import sb_attention as sba
+    from clearconverse_tpu_torch.ops import sb_ffn as sbf
+    model = rsf.init_resepformer(rsf.ResepformerDims(), seed=4, device=cuda)
+    rsf.prepare_kernels(model)
+    lyr = model.masknet.model.mem_model[0].mdl.layers[0]
+    fc1, fc2 = lyr.pos_ffn.ffn[0], lyr.pos_ffn.ffn[3]
+    p = (lyr.norm2.norm.weight, lyr.norm2.norm.bias, fc1.weight, fc1.bias,
+         fc2.weight, fc2.bias)
+    h = _sb_rows(12)[1]
+    first = sbf.sb_ffn(h, *p)
+    with torch.no_grad():
+        fc1.weight.copy_(fc1.weight.flip(0))
+    got = sbf.sb_ffn(h, *p)
+    want = sbf.sb_ffn_plain(h, *p)
+    assert float((got - first).abs().max()) > 1e-2
+    assert float((got - want).norm() / (want - h).norm()) <= 3e-6
+    with pytest.raises(ValueError):
+        sbf.sb_ffn(h.transpose(0, 1), *p)
+    with pytest.raises(ValueError):
+        sbf.sb_ffn(h.double(), *p)
+    qkv = torch.zeros((2, 150, 384), device=cuda)
+    with pytest.raises(ValueError):
+        sba.seg_attention(qkv[:, :, :192], 8)
+    with pytest.raises(ValueError):
+        sba.seg_attention(torch.zeros((1, 257, 384), device=cuda), 8)
 
 
 # ---------------------------- int4 cross-KV, dress rehearsal, the bench

@@ -183,7 +183,8 @@ def test_separate_batch_pads_rows_and_lengths():
     assert out.shape == (3, 1000, 2)
     assert b.last_separation == {
         "rows": 4, "samples": 4000,
-        "segments": rsf.resepformer_segments(lens.numpy(), TINY)}
+        "segments": rsf.resepformer_segments(lens.numpy(), TINY),
+        "fused_attn_layers": 0, "fused_ffn_layers": 0}
     np.testing.assert_array_equal(
         out, rsf.sepformer_separate(b._sepformer, mix[:3], lens[:3]).numpy())
 
@@ -216,6 +217,8 @@ def test_process_files_separates_the_overlap_with_lengths(tmp_path):
     assert c["real_samples"] == sum(int(np.sum(lens)) for _, lens in calls)
     assert c["rows"] >= c["real_rows"] and c["samples"] > c["real_samples"]
     assert c["segments"] > 0
+    # The CPU runs the separator's plain versions: no kernel launches.
+    assert c["fused_attn_layers"] == c["fused_ffn_layers"] == 0
 
 
 @pytest.mark.parametrize("with_meta", [True, False], ids=["meta", "pre_meta"])
