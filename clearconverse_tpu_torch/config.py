@@ -113,6 +113,7 @@ def torch_config_from_env(env: Optional[dict] = None) -> TorchConfig:
         ("CC_TORCH_PAD_FULL_WINDOW", "pad_to_full_window", _flag),
         ("CC_TORCH_LANGUAGE", "language",
          lambda v: None if v == "auto" else v),
+        ("CC_TORCH_SEPARATOR", "separator", str),
     ):
         raw = src.get(var)
         if raw not in (None, ""):
@@ -141,7 +142,9 @@ def parse_env_file(path: str) -> dict:
 
 def load_environment() -> dict:
     """Reference back/api.py:77-92: read ``ENV_FILE`` (default ``.env``),
-    overlay onto os.environ-derived settings, return the serving config."""
+    overlay onto os.environ-derived settings, return the serving config.
+    ``WHISPER_MODEL_SIZE`` names the transcriber (``Config.
+    whisper_model_size``: a Whisper size, or ``voxtral-mini-3b-2507``)."""
     env_file = os.environ.get("ENV_FILE", ".env")
     file_vars = parse_env_file(env_file)
 
@@ -154,4 +157,6 @@ def load_environment() -> dict:
         "cors_origins": get("CORS_ORIGINS", "*"),
         "model_cache_dir": get("MODEL_CACHE_DIR", "./models"),
         "hf_auth_token": get("HF_AUTH_TOKEN", "") or None,
+        "whisper_model_size": get("WHISPER_MODEL_SIZE", "")
+        or Config.whisper_model_size,
     }

@@ -408,3 +408,103 @@ def _strip_wrappers(obj):
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     return obj
+
+
+# ------------------------------------------------------------------ Voxtral
+
+def voxtral_hf_names(dims) -> Dict[str, str]:
+    """{HF ``VoxtralForConditionalGeneration`` name: the port's ``Voxtral``
+    parameter name} at ``dims`` (``models/voxtral.VoxtralDims``). The
+    language model's names are given with ``language_model.model.``;
+    ``load_voxtral_state_dict`` also takes them without the ``model.``."""
+    out = {"audio_tower.conv1.weight": "encoder.conv1.weight",
+           "audio_tower.conv1.bias": "encoder.conv1.bias",
+           "audio_tower.conv2.weight": "encoder.conv2.weight",
+           "audio_tower.conv2.bias": "encoder.conv2.bias",
+           "audio_tower.embed_positions.weight": "encoder.pos",
+           "audio_tower.layer_norm.weight": "encoder.ln_post.weight",
+           "audio_tower.layer_norm.bias": "encoder.ln_post.bias",
+           "multi_modal_projector.linear_1.weight": "adapter.linear_1.weight",
+           "multi_modal_projector.linear_2.weight": "adapter.linear_2.weight",
+           "language_model.model.embed_tokens.weight": "decoder.tok",
+           "language_model.model.norm.weight": "decoder.norm.weight",
+           "language_model.lm_head.weight": "decoder.lm_head.weight"}
+    for i in range(dims.n_audio_layer):
+        hf, pt = f"audio_tower.layers.{i}", f"encoder.blocks.{i}"
+        for a, b in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                     ("out_proj", "out")):
+            out[f"{hf}.self_attn.{a}.weight"] = f"{pt}.attn.{b}.weight"
+            if a != "k_proj":
+                out[f"{hf}.self_attn.{a}.bias"] = f"{pt}.attn.{b}.bias"
+        for a, b in (("self_attn_layer_norm", "attn_ln"),
+                     ("final_layer_norm", "mlp_ln")):
+            out[f"{hf}.{a}.weight"] = f"{pt}.{b}.weight"
+            out[f"{hf}.{a}.bias"] = f"{pt}.{b}.bias"
+        for a in ("fc1", "fc2"):
+            out[f"{hf}.{a}.weight"] = f"{pt}.mlp.{a}.weight"
+            out[f"{hf}.{a}.bias"] = f"{pt}.mlp.{a}.bias"
+    for i in range(dims.n_layer):
+        hf, pt = f"language_model.model.layers.{i}", f"decoder.layers.{i}"
+        for a, b in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                     ("o_proj", "o")):
+            out[f"{hf}.self_attn.{a}.weight"] = f"{pt}.attn.{b}.weight"
+        for a in ("gate", "up", "down"):
+            out[f"{hf}.mlp.{a}_proj.weight"] = f"{pt}.mlp.{a}.weight"
+        out[f"{hf}.input_layernorm.weight"] = f"{pt}.attn_norm.weight"
+        out[f"{hf}.post_attention_layernorm.weight"] = f"{pt}.mlp_norm.weight"
+    return out
+
+
+def load_voxtral_state_dict(model: nn.Module, sd: Mapping[str, Any]) -> None:
+    """Copies every tensor of an HF Voxtral state dict into ``model`` (a
+    ``models/voxtral.Voxtral``), each cast to its parameter's type; the
+    names must cover every parameter once. ``language_model.layers...``
+    (without ``model.``) is read as ``language_model.model.layers...``."""
+    names = voxtral_hf_names(model.dims)
+
+    def canon(k: str) -> str:
+        if k.startswith("language_model.") and k not in names:
+            alt = "language_model.model." + k[len("language_model."):]
+            if alt in names:
+                return alt
+        return k
+
+    sd = {canon(k): v for k, v in sd.items()}
+    missing = sorted(set(names) - set(sd))
+    extra = sorted(set(sd) - set(names))
+    if missing or extra:
+        raise KeyError(f"Voxtral state dict: missing {missing[:6]}, "
+                       f"unexpected {extra[:6]}")
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for hf, pt in names.items():
+            p = params[pt]
+            v = sd[hf]
+            v = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(v))
+            if tuple(v.shape) != tuple(p.shape):
+                raise ValueError(f"{hf}: {tuple(v.shape)} where the model "
+                                 f"holds {tuple(p.shape)}")
+            p.copy_(v.to(device=p.device, dtype=p.dtype))
+
+
+def load_voxtral(model_dir: str, name: str, dims, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
+    """``{model_dir}/{name}/`` holding HF Voxtral ``*.safetensors`` (one
+    file or shards; Mistral's ``consolidated.safetensors`` is not read) →
+    ``models/voxtral.Voxtral`` on ``device``; None without such files."""
+    from clearconverse_tpu_torch.models.voxtral import empty_voxtral
+    from clearconverse_tpu_torch.utils.safetensors import load_file
+    folder = os.path.join(model_dir, name)
+    files = sorted(f for f in (os.listdir(folder) if os.path.isdir(folder)
+                               else [])
+                   if f.endswith(".safetensors")
+                   and not f.startswith("consolidated"))
+    if not files:
+        return None
+    sd: Dict[str, Any] = {}
+    for f in files:
+        sd.update(load_file(os.path.join(folder, f)))
+    model = empty_voxtral(dims, device, dtype)
+    load_voxtral_state_dict(model, sd)
+    return model

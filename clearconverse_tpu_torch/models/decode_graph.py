@@ -159,6 +159,59 @@ class _Arena:
                  for name, t in layer.items()} for layer in self.self]
 
 
+@dataclasses.dataclass(frozen=True)
+class PrefixLayout:
+    """What a shared-prefix arena holds (Voxtral's decode,
+    ``decoding.voxtral_decode_from_audio``): the decoder's layers, its K/V heads and
+    head width, and the cache dtype."""
+
+    n_layer: int
+    kv_heads: int
+    head_dim: int
+    dtype: torch.dtype
+
+
+class _PrefixArena:
+    """Per layer, flat buffers for the unique rows' prompt K/V (the
+    shared prefix) and every replica's generated suffix K/V, holding up to
+    ``prefix`` and ``suffix`` elements. A key's views are contiguous
+    tensors at the start of each buffer, so keys of other shapes alias the
+    same memory; calls are serialised (``DecodeGraphs.lock``), and every
+    call rewrites its prefix and zeroes its suffix."""
+
+    def __init__(self, layout: PrefixLayout, prefix: int, suffix: int,
+                 device: torch.device):
+        self.layout = layout
+        self.dims = (prefix, suffix)
+
+        def z(n):
+            return torch.zeros(n, dtype=layout.dtype, device=device)
+
+        self.bufs = [{"pk": z(prefix), "pv": z(prefix), "sk": z(suffix),
+                      "sv": z(suffix)} for _ in range(layout.n_layer)]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for layer in self.bufs for t in layer.values())
+
+    def fits(self, layout, dims: Tuple[int, int]) -> bool:
+        return layout == self.layout and all(
+            n <= have for n, have in zip(dims, self.dims))
+
+    def views(self, U: int, R: int, P: int, M: int):
+        """(prefix ``{"kt": [U, H, dh, P], "v": [U, H, P, dh]}``, suffix
+        ``{"kt": [U, H, R, dh, M], "v": [U, H, R, M, dh]}``) per layer."""
+        H, dh = self.layout.kv_heads, self.layout.head_dim
+        n_p, n_s = U * H * dh * P, U * H * R * dh * M
+        prefix = [{"kt": b["pk"][:n_p].view(U, H, dh, P),
+                   "v": b["pv"][:n_p].view(U, H, P, dh)} for b in self.bufs]
+        suffix = [{"kt": b["sk"][:n_s].view(U, H, R, dh, M),
+                   "v": b["sv"][:n_s].view(U, H, R, M, dh)}
+                  for b in self.bufs]
+        return prefix, suffix
+
+
 @dataclasses.dataclass
 class GraphBuffers:
     """One graph key's fixed buffers: its views of the arena, the loop's
@@ -288,6 +341,35 @@ class DecodeGraphs:
             gen = torch.Generator(device=self.device) if sampling else None
             e = GraphBuffers(self._arena.cross_views(rows_kv, T),
                              self._arena.self_views(rows, M), gen)
+            self._entries[key] = e
+        for layer in e.self_kv:
+            for t in layer.values():
+                t.zero_()
+        return e
+
+    def prefix_buffers(self, key, layout: PrefixLayout, U: int, R: int,
+                       P: int, M: int, weights: Tuple[int, ...],
+                       sampling: bool) -> GraphBuffers:
+        """``buffers`` for a shared-prefix decode (Voxtral's): the key's
+        prefix K/V views as ``cross_kv`` and its suffix caches, zeroed, as
+        ``self_kv`` (``_PrefixArena.views``), in an arena that grows to the
+        largest prefix and suffix seen (a growth drops every graph)."""
+        if weights != self._weights:
+            self.release()
+            self._weights = weights
+        H, dh = layout.kv_heads, layout.head_dim
+        need = (U * H * dh * P, U * H * R * dh * M)
+        arena = self._arena
+        if arena is None or not arena.fits(layout, need):
+            if isinstance(arena, _PrefixArena) and arena.layout == layout:
+                need = tuple(max(a, b) for a, b in zip(need, arena.dims))
+            self.release()
+            self._arena = _PrefixArena(layout, *need, self.device)
+            self.stats["arena_allocs"] += 1
+        e = self._entries.get(key)
+        if e is None:
+            gen = torch.Generator(device=self.device) if sampling else None
+            e = GraphBuffers(*self._arena.views(U, R, P, M), gen)
             self._entries[key] = e
         for layer in e.self_kv:
             for t in layer.values():

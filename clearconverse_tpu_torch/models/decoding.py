@@ -500,18 +500,20 @@ def _loop_eager(s, c: _LoopInputs, step=_greedy_step) -> int:
     return int(s.ctl[0])
 
 
-def _keyed_loop(bufs: decode_graph.GraphBuffers, c: _LoopInputs,
-                new_state: Callable[[], Any]):
+def _keyed_loop(bufs: decode_graph.GraphBuffers, c,
+                new_state: Callable[[], Any],
+                refill=("prompt_lens", "padded", "suppress", "temperature")):
     """The graph route's loop state and inputs: made on the key's first
     call (``new_state()``), after that the same tensors with this call's
-    inputs copied in, so the captured graph finds them where it left
-    them. The graph's inputs hold no model: the graphs are dropped with
-    the model, so they must not keep it."""
+    inputs (``refill``, the fields of ``c`` a call may change) copied in,
+    so the captured graph finds them where it left them. The graph's
+    inputs hold no model: the graphs are dropped with the model, so they
+    must not keep it."""
     if bufs.state is None:
         bufs.state = new_state()
         bufs.inputs = dataclasses.replace(c, model=None)
     else:
-        for name in ("prompt_lens", "padded", "suppress", "temperature"):
+        for name in refill:
             getattr(bufs.inputs, name).copy_(getattr(c, name))
     return bufs.state, dataclasses.replace(bufs.inputs, model=c.model,
                                            opts=c.opts)
@@ -925,6 +927,164 @@ def beam_decode(
         timer.count("token_loop_steps", loop_steps)
     out = _finalize_decode(fin_tokens, fin_scores, no_speech_prob, opts)
     out["steps"] = loop_steps + 1    # token positions decoded
+    return out
+
+
+@dataclasses.dataclass
+class _VoxtralInputs:
+    """What a Voxtral loop step reads and never writes (``_LoopInputs``'
+    counterpart): the unique rows' prefix K/V, the prompt's slots, the
+    suffix slot index, the suppression mask, t and the generator."""
+
+    model: Optional[torch.nn.Module]
+    opts: DecodeOptions
+    prefix: List[Dict[str, torch.Tensor]]
+    P: int                     # prompt positions
+    kslot: torch.Tensor        # [M] suffix slot index
+    suppress: torch.Tensor     # [V] bool (_suppress_mask)
+    temperature: torch.Tensor  # 0-d f32
+    generator: Optional[torch.Generator]
+
+
+def _voxtral_step(s: _LoopState, c: _VoxtralInputs) -> None:
+    """One token for every row, in place, as ``_greedy_step`` without
+    Whisper's rules: the control ids suppressed, EOS ending a row. Past
+    the loop's end every row counts as done: such a step writes EOS, adds
+    nothing to ``slp`` and leaves ``ctl`` as it was."""
+    from clearconverse_tpu_torch.models.voxtral import step_forward
+    opts = c.opts
+    step = s.step
+    live = ~s.finished.all() & (step < opts.max_tokens)
+    logits = step_forward(c.model, s.prev, step, c.prefix, s.kv, c.kslot,
+                          c.P, opts.compute_dtype)
+    lg = logits.masked_fill(c.suppress, _NEG_INF)
+    logp = F.log_softmax(lg, dim=-1)
+    pick = _pick(lg, opts, c.generator, c.temperature)
+    done = s.finished | (step >= opts.max_tokens)
+    nxt = torch.where(done, opts.eot, pick)
+    s.slp.add_(torch.where(done, 0.0, logp.gather(1, pick[:, None])[:, 0]))
+    s.tokens.index_copy_(1, step.reshape(1), nxt[:, None])
+    s.finished.copy_(done | (nxt == opts.eot))
+    s.prev2.copy_(s.prev)
+    s.prev.copy_(nxt)
+    s.ctl[0].add_(live.long())
+    step.add_(1)
+    s.ctl[1].copy_(s.finished.all() | (step >= opts.max_tokens))
+
+
+def _voxtral_steps(s: _LoopState, c: _VoxtralInputs) -> None:
+    """``decode_graph.K`` Voxtral steps: what one of its graphs captures."""
+    for _ in range(decode_graph.K):
+        _voxtral_step(s, c)
+
+
+def voxtral_counts(U: int, P: int, R: int, steps: int) -> Dict[str, int]:
+    """What a Voxtral decode call ran: ``prefix_rows`` (unique rows
+    prefilled), ``prefix_positions`` (their positions), ``rows``, ``steps``
+    (loop steps), ``suffix_positions`` (suffix positions attended, summed
+    over rows and steps), ``prefix_copies`` (prefix K/V copies held per
+    unique row) and ``prefix_reads`` (prefix positions read by the loop,
+    summed over its steps)."""
+    return {"prefix_rows": U, "prefix_positions": U * P, "rows": U * R,
+            "steps": steps,
+            "suffix_positions": U * R * steps * (steps + 1) // 2,
+            "prefix_copies": 1, "prefix_reads": steps * U * P}
+
+
+@torch.inference_mode()
+def voxtral_decode_from_audio(
+    model: torch.nn.Module,
+    audio: torch.Tensor,             # [U, T] 16 kHz waveform, unique rows
+    head: Tuple[int, ...],
+    tail: Tuple[int, ...],
+    opts: DecodeOptions,
+    generator: Optional[torch.Generator] = None,
+    target_len: int = 30 * 16000,
+    timer: Optional[StageTimer] = None,
+) -> Dict[str, Any]:
+    """Voxtral's decode (``models/voxtral.py``): pad/trim → log-mel (K1 on
+    CUDA) → encoder (K2) → adapter → the prompt (``head`` ids, the audio
+    rows, ``tail`` ids) prefilled once per unique row → the token loop over
+    ``opts.replicas`` replicas of each row, which share the row's prefix
+    K/V. Returns ``greedy_decode``'s dict (``no_speech_prob`` zeros) and
+    ``counts`` (``voxtral_counts``). ``timer`` records the spans log_mel,
+    encoder, adapter, prefix_prefill and token_loop and counts
+    ``token_loop_steps`` and the counters.
+
+    On a CUDA tensor the loop runs as CUDA graphs of ``decode_graph.K``
+    steps, one per static key (unique rows, replicas, prompt positions,
+    max_tokens, options), the prefix and suffix K/V in the model's arena
+    (``DecodeGraphs.prefix_buffers``); on the CPU the same step runs
+    eagerly. Beam search is Whisper's: ``opts.beam`` raises."""
+    from clearconverse_tpu_torch.audio.mel import log_mel_auto, pad_or_trim
+    from clearconverse_tpu_torch.models import voxtral as vx
+
+    if opts.beam:
+        raise ValueError("Voxtral decodes greedily or samples best_of; "
+                         "beam search is Whisper's")
+    dims = model.dims
+    cdt = opts.compute_dtype
+    dev = audio.device
+    R, mt = max(opts.replicas, 1), opts.max_tokens
+    with _span(timer, "log_mel"):
+        mel = log_mel_auto(pad_or_trim(audio.float(), target_len), dims.n_mels)
+    rows = vx.encode_audio(model, mel, cdt,
+                           span=lambda name: _span(timer, name))
+    x = vx.prompt_embeddings(model, rows, head, tail)
+    U, P = x.shape[0], x.shape[1]
+    B, M = U * R, mt + decode_graph.K
+    graphs = decode_graph.graphs_for(model) if dev.type == "cuda" else None
+    with graphs.lock if graphs is not None else contextlib.nullcontext():
+        bufs = None
+        sampling = opts.temperature > 0 and generator is not None
+        if graphs is not None:
+            key = ("voxtral", U, R, P, mt, sampling,
+                   dataclasses.replace(opts, temperature=float(
+                       opts.temperature > 0), suppress_tokens=()))
+            layout = decode_graph.PrefixLayout(dims.n_layer, dims.n_kv_head,
+                                               dims.head_dim, cdt)
+            bufs = graphs.prefix_buffers(key, layout, U, R, P, M,
+                                         decode_graph.weights_key(model),
+                                         sampling)
+        with _span(timer, "prefix_prefill"):
+            prefix, last = vx.prefix_prefill(
+                model, x, cdt, out=None if bufs is None else bufs.cross_kv)
+        suffix = (vx.suffix_cache(dims, U, R, M, cdt, dev) if bufs is None
+                  else bufs.self_kv)
+        with _span(timer, "token_loop"):
+            gen = generator
+            if bufs is not None and bufs.generator is not None:
+                gen = bufs.generator
+                gen.manual_seed(generator.initial_seed())
+            c = _VoxtralInputs(
+                model, opts, prefix, P, torch.arange(M, device=dev),
+                _suppress_mask(opts, dims.n_vocab, dev),
+                torch.full((), float(opts.temperature), dtype=torch.float32,
+                           device=dev), gen)
+            new_state = functools.partial(_new_state, B, M, suffix, dev)
+            if bufs is None:
+                s = new_state()
+            else:
+                s, c = _keyed_loop(bufs, c, new_state,
+                                   refill=("suppress", "temperature"))
+            _start_loop(s, c, last.repeat_interleave(R, dim=0), opts)
+            if bufs is None:
+                loop_steps = _loop_eager(s, c, _voxtral_step)
+            else:
+                loop_steps = graphs.run(
+                    bufs, functools.partial(_voxtral_steps, s, c), s.ctl,
+                    -(-(mt - 1) // decode_graph.K), timer) if mt > 1 else 0
+            tokens, slp = s.tokens[:, :mt].clone(), s.slp.clone()
+
+    counts = voxtral_counts(U, P, R, loop_steps)
+    if timer is not None:
+        timer.count("token_loop_steps", loop_steps)
+        for name in ("prefix_rows", "prefix_positions", "rows",
+                     "suffix_positions", "prefix_reads"):
+            timer.count(name, counts[name])
+    out = _finalize_decode(tokens, slp, torch.zeros(B, device=dev), opts)
+    out["steps"] = loop_steps + 1
+    out["counts"] = counts
     return out
 
 

@@ -191,6 +191,60 @@ class ByteFallbackTokenizer:
         return bytes(keep).decode("utf-8", errors="replace")
 
 
+@dataclasses.dataclass(frozen=True)
+class TekkenSpecials:
+    """Voxtral's Tekken layout: 1000 control ids, then the 256 bytes at
+    1000-1255, then the merges up to ``n_vocab``. The ids the
+    transcription template uses (``<s>`` 1, ``</s>`` 2, ``[INST]`` 3,
+    ``[/INST]`` 4, ``[AUDIO]`` 24, ``[BEGIN_AUDIO]`` 25, ``[TRANSCRIBE]``
+    34) are the published ``tekken.json``'s as far as its template shows;
+    they are assumed, not read."""
+
+    bos: int = 1
+    eos: int = 2
+    inst: int = 3
+    inst_end: int = 4
+    audio: int = 24
+    begin_audio: int = 25
+    transcribe: int = 34
+    n_special: int = 1000
+    n_vocab: int = 131072
+
+    def control_ids(self) -> Tuple[int, ...]:
+        """Every control id but ``</s>``: never a transcript's token, so
+        the decode suppresses them after the prompt."""
+        return tuple(i for i in range(self.n_special) if i != self.eos)
+
+    def prompt(self, lang_ids: Sequence[int]) -> Tuple[Tuple[int, ...],
+                                                       Tuple[int, ...]]:
+        """(ids before the audio rows, ids after them) of a transcription
+        request: ``<s>[INST][BEGIN_AUDIO]`` · audio ·
+        ``[/INST]`` ``lang_ids`` ``[TRANSCRIBE]``."""
+        return ((self.bos, self.inst, self.begin_audio),
+                (self.inst_end, *lang_ids, self.transcribe))
+
+
+class TekkenByteTokenizer:
+    """Voxtral's stand-in without ``tekken.json``: text is its UTF-8 bytes
+    at ids 1000 + byte, and decoding keeps the byte ids only, as
+    ``ByteFallbackTokenizer`` does for Whisper's layout."""
+
+    def __init__(self, specials: Optional[TekkenSpecials] = None):
+        self.specials = specials or TekkenSpecials()
+
+    def encode(self, text: str) -> List[int]:
+        return [self.specials.n_special + b for b in text.encode("utf-8")]
+
+    def decode(self, ids: Sequence[int], skip_special: bool = True) -> str:
+        lo = self.specials.n_special
+        keep = [int(i) - lo for i in ids if lo <= int(i) < lo + 256]
+        return bytes(keep).decode("utf-8", errors="replace")
+
+    def language_ids(self, language: Optional[str]) -> List[int]:
+        """``lang:<code>`` of the transcription template; none for None."""
+        return self.encode(f"lang:{language}") if language else []
+
+
 # openai-whisper tokenizer.py non_speech_tokens: symbols suppressed when a
 # single token (with or without leading space)...
 _NON_SPEECH_SYMBOLS = (

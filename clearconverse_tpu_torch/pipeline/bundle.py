@@ -194,6 +194,9 @@ class ModelBundle:
         # "random_init".
         self.load_source: dict = {}
         self._whisper = None       # (Whisper module, dims, tokenizer)
+        # (Voxtral module, dims, tokenizer) when Config.whisper_model_size
+        # names Voxtral (models/voxtral.py); then ``_whisper`` stays None.
+        self._voxtral = None
         self._sepformer = None     # Sepformer module (models/resepformer)
         self._ecapa = None         # ECAPA weights (models/ecapa)
         self._pyannet = None       # PyanNet weights (models/pyannet)
@@ -201,6 +204,7 @@ class ModelBundle:
         # smaller ones alongside their weights.
         self._ecapa_dims = None
         self._pyannet_dims = None
+        self._voxtral_dims = None
         # Cancel gate: the engine installs it per run, and every batched
         # compute method probes it before it starts device work.
         self.should_cancel: Optional[Callable[[], bool]] = None
@@ -224,11 +228,27 @@ class ModelBundle:
         # samples, the published layout's segments, and the separator layers
         # that ran its two kernels (ops/sb_attention.py, ops/sb_ffn.py).
         self.last_separation: dict = {}
+        # Voxtral's decode counters (decoding.voxtral_counts), summed over
+        # the decode calls since the engine last cleared them (once a pass):
+        # prefix_rows, prefix_positions, rows, steps, suffix_positions,
+        # prefix_reads; prefix_copies, the most of any call.
+        self.last_decode: dict = {}
         # The (data, model) mesh, built at first use from the TorchConfig
         # axes; the serving controller on rank 0 of a mesh.
         self._mesh = None
         self._mesh_built = False
         self._controller = None
+
+    @property
+    def seeks(self) -> bool:
+        """Whether segments over 30 s take Whisper's timestamp seek
+        (``transcribe_long_batch``); Voxtral's take the engine's fixed 30 s
+        cuts."""
+        return not self._is_voxtral()
+
+    def _is_voxtral(self) -> bool:
+        from clearconverse_tpu_torch.models.voxtral import is_voxtral
+        return is_voxtral(self.config.whisper_model_size)
 
     @property
     def stage_times(self) -> dict:
@@ -335,18 +355,22 @@ class ModelBundle:
             self._sepformer = self._load_sepformer()
             cb(40, "Loading Whisper model")
             size = self.config.whisper_model_size
-            model, dims = load_whisper(self.model_dir, size, self.device,
-                                       self._cdt)
-            if model is None:
-                logger.warning("no whisper checkpoint in %s; using random init",
-                               self.model_dir)
-                model = init_whisper(dims, 0, self.device, self._cdt)
-                self.load_source["whisper"] = "random_init"
+            if self._is_voxtral():
+                self._voxtral = self._load_voxtral(size)
             else:
-                self.load_source["whisper"] = "checkpoint"
-            tok = load_tokenizer(self.model_dir, english=size.endswith(".en"))
-            self.load_source["tokenizer"] = type(tok).__name__
-            self._whisper = (model, dims, tok)
+                model, dims = load_whisper(self.model_dir, size, self.device,
+                                           self._cdt)
+                if model is None:
+                    logger.warning("no whisper checkpoint in %s; using "
+                                   "random init", self.model_dir)
+                    model = init_whisper(dims, 0, self.device, self._cdt)
+                    self.load_source["whisper"] = "random_init"
+                else:
+                    self.load_source["whisper"] = "checkpoint"
+                tok = load_tokenizer(self.model_dir,
+                                     english=size.endswith(".en"))
+                self.load_source["tokenizer"] = type(tok).__name__
+                self._whisper = (model, dims, tok)
             cb(70, "Loading speaker models")
             self._ecapa = self._load_ecapa()
             self._pyannet = self._load_pyannet()
@@ -358,6 +382,33 @@ class ModelBundle:
                 raise
             logger.exception("model loading failed")
             return False
+
+    def _load_voxtral(self, name: str):
+        """(Voxtral, dims, tokenizer): HF Voxtral weights from
+        ``{model_dir}/{name}/*.safetensors`` (``convert.load_voxtral``) or
+        a seeded random init, and the Tekken layout's byte tokenizer. One
+        card: a (data, model) mesh is refused."""
+        from clearconverse_tpu_torch.models import voxtral as vx
+        from clearconverse_tpu_torch.models.convert import load_voxtral
+        from clearconverse_tpu_torch.models.tokenizer import (
+            TekkenByteTokenizer, TekkenSpecials)
+        cfg = self.torch_config
+        if cfg.data_axis * cfg.model_axis > 1:
+            raise ValueError("Voxtral runs on one card: no (data, model) "
+                             "mesh")
+        dims = self._voxtral_dims or vx.VOXTRALS[name]
+        model = load_voxtral(self.model_dir, name, dims, self.device,
+                             self._cdt)
+        if model is None:
+            logger.warning("no %s checkpoint in %s; using random init",
+                           name, self.model_dir)
+            model = vx.init_voxtral(dims, 0, self.device, self._cdt)
+            self.load_source["voxtral"] = "random_init"
+        else:
+            self.load_source["voxtral"] = "checkpoint"
+        tok = TekkenByteTokenizer(TekkenSpecials(n_vocab=dims.n_vocab))
+        self.load_source["tokenizer"] = type(tok).__name__
+        return model, dims, tok
 
     def _load_sepformer(self):
         """The separator ``TorchConfig.separator`` names. The sketch:
@@ -726,6 +777,11 @@ class ModelBundle:
         [{"word", "start", "end"}] from a teacher-forced cross-attention
         pass over the same padded rows → (texts, words)."""
         self._ensure()
+        if self._voxtral is not None:
+            if word_timestamps:
+                raise ValueError("word timestamps are Whisper's alignment "
+                                 "pass; Voxtral has none")
+            return self._transcribe_voxtral(audio, len(prompts), temperature)
         cfg = self.torch_config
         model, dims, tok = self._whisper_on_mesh()
         sp = tok.specials
@@ -767,6 +823,65 @@ class ModelBundle:
         return texts[:n_real], self._align(model, dims, tok, audio, target,
                                            final_tokens, final_lengths, n_real,
                                            languages)
+
+    def _transcribe_voxtral(self, audio, n_real: int, temperature):
+        """``transcribe_batch`` on Voxtral: the rows padded to the row
+        bucket and to 30 s, then ``decoding.voxtral_decode_from_audio``
+        under ``_decode_with_fallback`` (best_of's ranking, the quality
+        gates and the temperature ladder). The prompts are not read: the
+        transcription template has no slot for earlier text. Whisper's
+        language detection, no-speech gate and seek are not run."""
+        from clearconverse_tpu_torch.models import decoding as dec
+        cfg = self.torch_config
+        model, dims, tok = self._voxtral
+        sp = tok.specials
+        rows = self._rows(n_real)
+        is_store = isinstance(audio, StoreBatch)
+        if rows > n_real:
+            audio = (audio.pad_rows(rows - n_real) if is_store else
+                     np.pad(np.asarray(audio), ((0, rows - n_real), (0, 0))))
+        if not is_store:
+            audio = torch.as_tensor(np.asarray(audio, np.float32),
+                                    device=self.device)
+        head, tail = sp.prompt(tok.language_ids(cfg.language))
+        target = 30 * 16000
+
+        def decode_rows(audio_rows, _toks, _lens, temp: float,
+                        replicas: int = 1):
+            opts = dec.DecodeOptions(
+                max_tokens=cfg.max_decode_tokens, temperature=temp,
+                eot=sp.eos, suppress_blank=False,
+                suppress_tokens=sp.control_ids(), compute_dtype=self._cdt,
+                replicas=replicas, beam=(temp == 0 and replicas > 1))
+            gen = None
+            if temp > 0:
+                self._decode_seed += 1
+                if self._decode_gen is None:
+                    self._decode_gen = torch.Generator(device=self.device)
+                gen = self._decode_gen.manual_seed(self._decode_seed)
+            with self._stage_timer.stage("decode_dev"):
+                if isinstance(audio_rows, StoreBatch):
+                    with dec._span(self.decode_timer, "gather"):
+                        audio_rows = audio_rows.gather()
+                out = dec.voxtral_decode_from_audio(
+                    model, audio_rows, head, tail, opts, gen,
+                    target_len=target, timer=self.decode_timer)
+                self._count_decode(out["counts"])
+                return _unpack_decode(out, opts.max_tokens)
+
+        zeros = np.zeros((rows, 1), np.int32)
+        texts = self._decode_with_fallback(
+            decode_rows, audio, zeros, zeros[:, 0], temperature, n_real,
+            text_of=lambda tk, n: tok.decode(tk[:n]), eot=sp.eos)[5]
+        return texts[:n_real]
+
+    def _count_decode(self, counts: dict) -> None:
+        """Adds one Voxtral decode call's counters to ``last_decode``."""
+        for k, v in counts.items():
+            if k == "prefix_copies":
+                self.last_decode[k] = max(self.last_decode.get(k, 0), v)
+            else:
+                self.last_decode[k] = self.last_decode.get(k, 0) + v
 
     @torch.no_grad()
     def _align(self, model, dims, tok, audio, target: int, tokens, lengths,
@@ -815,8 +930,12 @@ class ModelBundle:
         window. ``ctx_tokens`` are the kept ids, timestamps included (the
         caller chains the next window's prompt from them); a skipped silent
         window gives []. ``reset_context`` is whisper's prompt-reset rule:
-        conditioning is off, or the kept result decoded hotter than 0.5."""
+        conditioning is off, or the kept result decoded hotter than 0.5.
+        Whisper's only: Voxtral does not seek (``seeks``)."""
         self._ensure()
+        if self._voxtral is not None:
+            raise ValueError("Voxtral does not seek: segments over 30 s take "
+                             "the engine's fixed 30 s cuts")
         cfg = self.torch_config
         model, dims, tok = self._whisper_on_mesh()
         sp = tok.specials

@@ -523,6 +523,9 @@ class TranscriptionEngine:
         # the staging buffer reused).
         self.last_run_wire: Dict[str, object] = {}
         self.last_run_separation = _new_separation_counts()
+        if hasattr(self.models, "last_decode"):
+            # Voxtral's decode counters add up over this pass's calls.
+            self.models.last_decode = {}
         if getattr(self.models, "supports_store", False):
             with run_timer.stage("load_gate"):
                 # Hosts come back as LazyAudio views: the gated batch stays
@@ -1076,11 +1079,13 @@ class TranscriptionEngine:
         reached via back/api.py:1474-1480), so window seams drop no words.
         Successive windows chain on each other's tokens
         (condition_on_previous_text). Bundles without
-        ``transcribe_long_batch`` (test fakes) fall back to fixed 30 s cuts."""
+        ``transcribe_long_batch`` (test fakes), and those that do not seek
+        (``seeks`` false: Voxtral), take fixed 30 s cuts."""
         from clearconverse_tpu_torch.audio.decode import lazy_slice
         from clearconverse_tpu_torch.pipeline.batching import split_long
 
-        long_ok = hasattr(self.models, "transcribe_long_batch")
+        long_ok = (hasattr(self.models, "transcribe_long_batch")
+                   and getattr(self.models, "seeks", True))
         win = int(30.0 * sr)
         buckets = self.torch_config.duration_buckets
         batch_size = self.config.transcription_batch_size

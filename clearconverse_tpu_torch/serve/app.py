@@ -716,7 +716,9 @@ def _join_serving_mesh(env, tc):
 
     device = init_process_group(timeout_s=_SERVING_COLLECTIVE_TIMEOUT_S)
     if int(os.environ["RANK"]) != 0:
-        follow(ModelBundle(Config(auth_token=env["hf_auth_token"]), tc,
+        follow(ModelBundle(Config(auth_token=env["hf_auth_token"],
+                                  whisper_model_size=env["whisper_model_size"]),
+                           tc,
                            env["model_cache_dir"], device=device))
         return None, None
     engine = default_engine_factory()

@@ -11,7 +11,8 @@ import os
 
 def default_engine_factory():
     """The port's TranscriptionEngine on the card, built from the
-    environment (``torch_config_from_env``: ``CC_TORCH_*`` knobs), or the
+    environment (``torch_config_from_env``: ``CC_TORCH_*`` knobs;
+    ``WHISPER_MODEL_SIZE``, the transcriber, small.en by default), or the
     dev-backend engine on the CPU when ``CC_TPU_FAKE_MODELS=1``
     (signal-processing stand-ins: the whole pipeline runs with no weights
     and no device code)."""
@@ -27,6 +28,7 @@ def default_engine_factory():
                    noise_reduction_amount=0.0),
             models=DevModels(), device="cpu")
     return TranscriptionEngine(
-        Config(auth_token=env["hf_auth_token"]),
+        Config(auth_token=env["hf_auth_token"],
+               whisper_model_size=env["whisper_model_size"]),
         torch_config=torch_config_from_env(),
         model_dir=env["model_cache_dir"])

@@ -83,7 +83,8 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
     store-backed (diarized segments of the original audio) and from host
     arrays (separated overlap clips), plus p64 prompts at the row
     extremes, each from the largest down (the first drive sizes the decode
-    graphs' arena). Returns ``decode_graph_stats`` of the bundle. A
+    graphs' arena); a bundle that does not seek (Voxtral) gets no
+    long windows. Returns ``decode_graph_stats`` of the bundle. A
     bundle that is not the port's ModelBundle (the dev backend) is
     skipped."""
     from clearconverse_tpu_torch.pipeline.bundle import (
@@ -119,7 +120,7 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
     # 4/16/64/256) under both the GPT-2 BPE and the byte tokenizer.
     prompts = {"p256": "ctx " * 100, "p64": "ctx " * 9, "p16": "ctx " * 3,
                "p4": ""}
-    for n in row_buckets:
+    for n in row_buckets if bundle.seeks else ():
         sb = store_rows(n, 30 * SR)
         lens = np.full(n, 30 * SR)
         for pname, prompt in prompts.items():
@@ -148,17 +149,20 @@ def warm_decode_shapes(engine, drive: Callable[[str, Callable], None],
 
 
 def decode_graph_stats(bundle) -> Optional[dict]:
-    """The decode graphs' counts of ``bundle``'s Whisper on the card
+    """The decode graphs' counts of ``bundle``'s transcriber (Whisper or
+    Voxtral) on the card
     (captures, capture_s, replays, arena_allocs, ..., ``graphs``,
     ``beam_graphs``, ``arena_gb``); None elsewhere, and for a bundle that
     is not the port's ModelBundle."""
     from clearconverse_tpu_torch.pipeline.bundle import ModelBundle
 
+    transcriber = getattr(bundle, "_whisper", None) or \
+        getattr(bundle, "_voxtral", None)
     if (not isinstance(bundle, ModelBundle) or bundle.device.type != "cuda"
-            or bundle._whisper is None):
+            or transcriber is None):
         return None
     from clearconverse_tpu_torch.models.decode_graph import graphs_for
-    graphs = graphs_for(bundle._whisper[0])
+    graphs = graphs_for(transcriber[0])
     # A key's last item is its DecodeOptions (decoding._graph_buffers).
     beam = sum(bool(key[-1].beam and key[-1].replicas > 1)
                for key in graphs.captured())

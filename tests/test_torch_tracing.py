@@ -332,3 +332,58 @@ def test_a_span_records_a_total_with_the_profiler_on_and_off():
     _profiled(lambda: _stage_ns(10, timer))
     assert timer.spans == [] and list(timer.as_dict()) == ["x"]
     assert timer.as_dict()["x"] > 0.0
+
+
+def _voxtral_bundle():
+    """``_tiny_bundle`` with a tiny Voxtral (models/voxtral.py) as its
+    transcriber."""
+    from clearconverse_tpu_torch.config import Config
+    from clearconverse_tpu_torch.models import voxtral as vx
+    from clearconverse_tpu_torch.models.tokenizer import (
+        TekkenByteTokenizer, TekkenSpecials)
+    b = _tiny_bundle()
+    b.config = Config(whisper_model_size=vx.NAME)
+    dims = vx.VoxtralDims(n_audio_state=64, n_audio_head=2, n_audio_layer=1,
+                          d_model=32, n_layer=1, n_head=4, n_kv_head=2,
+                          head_dim=8, d_ffn=64, n_vocab=1300)
+    b._whisper = None
+    b._voxtral = (vx.init_voxtral(dims, 0, "cpu", torch.float32), dims,
+                  TekkenByteTokenizer(TekkenSpecials(n_vocab=dims.n_vocab)))
+    return b
+
+
+def test_voxtral_decode_opens_its_ranges_and_adds_up_its_counters(
+        tmp_path, monkeypatch):
+    from clearconverse_tpu_torch.audio.wav import write_wav
+    from clearconverse_tpu_torch.models import decoding
+    from clearconverse_tpu_torch.pipeline.dev_backend import synth_conversation
+    from clearconverse_tpu_torch.pipeline.engine import TranscriptionEngine
+    b = _voxtral_bundle()
+    eng = TranscriptionEngine(b.config, b.torch_config, models=b)
+    paths = []
+    for i in range(2):
+        paths.append(str(tmp_path / f"v{i}.wav"))
+        write_wav(paths[-1], synth_conversation()[: (8 + i) * 16000], 16000)
+    calls = []
+    real = decoding.voxtral_decode_from_audio
+
+    def counted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(out["counts"])
+        return out
+
+    monkeypatch.setattr(decoding, "voxtral_decode_from_audio", counted)
+    eng.process_files(paths)                   # a pass before the traced one
+    calls.clear()
+    results, events = _profiled(lambda: eng.process_files(paths))
+    assert all(r is not None and r["segments"] for r in results), results
+    names = {e.name for e in _ranges(events)}
+    assert {"cc:decode.adapter", "cc:decode.prefix_prefill",
+            "cc:decode.encoder", "cc:decode.token_loop"} <= names
+    assert "cc:decode.cross_kv" not in names
+    # The pass's counters are its calls' sums (prefix copies: the most).
+    assert calls
+    want = {k: sum(c[k] for c in calls) for k in calls[0]}
+    want["prefix_copies"] = 1
+    assert b.last_decode == want
+    assert want["rows"] == 2 * want["prefix_rows"]
