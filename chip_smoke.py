@@ -19,7 +19,11 @@ Phases, each fatal on failure:
                PyTorch library call; then the published RE-SepFormer's
                segment attention and FFN kernels against their plain
                versions at the overlap cell's call shape (16 rows of 8.3 s,
-               1,776 segments): kernel, plain and bound ms;
+               1,776 segments): kernel, plain and bound ms; Voxtral's
+               loop-step attention kernel (V1, ops/decode_attention.py)
+               against its plain version at the voxtral-mini-batch cell's
+               shape at step 64: kernel, plain, bound and, as a yardstick
+               the port never calls, scaled_dot_product_attention ms;
   3. slice   — a 2-layer model at small.en's full width, f32: transcribe_batch
                at t=0 on the card (kernels) and on the CPU (plain versions);
                identical tokens and texts, encoder output and prefill logits
@@ -179,6 +183,17 @@ Phases, each fatal on failure:
                graphs' arena_allocs, graphs, and the keys an engine pass
                captured that the end of the warm-up no longer holds. Fails
                unless run_warmup allocates the arena once and keeps them.
+ 22. voxtral — Voxtral Mini 3B at its published widths (seeded weights,
+               bf16) at the voxtral-mini-batch cell's loop shape (32 unique
+               rows x best_of 5, the 387-position prompt prefilled, step 64):
+               one step eagerly under torch.profiler, its kernel time split
+               into the attention block (the q/k/v outputs to o's input) and
+               the rest, with the plain version (the step before V1) and
+               with V1; the step as a CUDA graph timed by events, both ways;
+               V1's step logits against the plain version's (fails at a
+               log-probability gap of VX_STEP_GAP); then one decode
+               call on the graph route (8 rows x best_of 5, 16 tokens) and
+               its fused_attn_layers, which must be 30.
 Every phase runs with the decode graphs' counts set to 0 before it; the
 phases that decode on the card (GRAPH_PHASES) and every bench block must
 have replayed graphs.
@@ -247,6 +262,21 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` captured once into a CUDA graph and
+    replayed (``time_ms``): the kernels back to back, without the host's
+    launch cost between them, as the decode graphs run them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, iters=iters, warmup=3)
 
 
 def bound_ms(bytes_moved: float, flops: float, dtype: str):
@@ -433,7 +463,101 @@ def phase_kernels(gen: torch.Generator):
     extra["encoder_attention_mesh"] = k2_mesh_check(gen)
     extra["encoder_attention_train"] = k2_grad_check(gen)
     extra["separator"] = separator_kernels(gen)
+    extra["voxtral_attention"] = voxtral_attention_kernel(gen)
     return rows, extra
+
+
+# Voxtral's loop at the voxtral-mini-batch cell: 32 unique rows a decode
+# call, best_of 5, max_tokens 128 + decode_graph.K suffix slots; phase 2
+# and phase 22 take step 64, the loop's mean.
+VX_ROWS, VX_REPLICAS, VX_SLOTS, VX_STEP = 32, 5, 136, 64
+# Phase 22's limit on the widest log-probability gap between V1's step and
+# the plain step over 160 rows x 131,072 ids: V1 read 0.031 and 0.033 nats
+# on the H100 (the two round the softmax weights at different points).
+VX_STEP_GAP = 0.3
+
+
+def vx_prompt_positions() -> int:
+    """The transcription prompt's positions at the published widths (387)."""
+    from clearconverse_tpu_torch.models import voxtral as vx
+    from clearconverse_tpu_torch.models.tokenizer import (
+        TekkenByteTokenizer, TekkenSpecials)
+    tok = TekkenByteTokenizer(TekkenSpecials())
+    head, tail = tok.specials.prompt(tok.language_ids("en"))
+    return len(head) + vx.VoxtralDims().audio_rows + len(tail)
+
+
+def voxtral_attention_kernel(gen: torch.Generator):
+    """V1 (ops/decode_attention.py) against its plain version at the cell's
+    shape at step VX_STEP, on N(0, 1) q, k, v and caches, then kernel,
+    plain and library ms, each replayed as a CUDA graph (``graph_ms``; the
+    wrapper's checks on the host would otherwise set the pace), beside the
+    bound: the bytes it must move (q, k, v and the output; the prefix K/V
+    once; slots 0 .. step - 1 of every suffix; the slot written) at 3.35
+    TB/s, or its two products at the bf16 tensor-core rate. Library: scaled_dot_product_attention over the prefix
+    (the R replicas as R query positions, grouped heads) and over the
+    suffix (one query a row, the slots copied out first), without RoPE, the
+    slot write or the merge: a yardstick the port never calls."""
+    from clearconverse_tpu_torch.models import voxtral as vx
+    from clearconverse_tpu_torch.ops import decode_attention as da
+    U, R, M, step = VX_ROWS, VX_REPLICAS, VX_SLOTS, VX_STEP
+    P, H, D, G = vx_prompt_positions(), 8, 128, 4
+    B = U * R
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    cos, sin = vx.rope_tables(vx.VoxtralDims(),
+                              torch.tensor(P + step - 1, device="cuda"))
+    q, k, v = t(B, G * H * D), t(B, H * D), t(B, H * D)
+    prefix = {"k": t(U, H, P, D), "v": t(U, H, P, D)}
+    suffix = {"k": t(U, H, R, M, D), "v": t(U, H, R, M, D)}
+    st, kslot = torch.tensor(step, device="cuda"), torch.arange(M, device="cuda")
+
+    def run(fn, suf):
+        return fn(q, k, v, cos, sin, st, prefix, suf, kslot)
+
+    plain_suf = {n: x.clone() for n, x in suffix.items()}
+    got = run(da.decode_attention, suffix)
+    want = run(da.decode_attention_plain, plain_suf)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    slot_ok = all(torch.equal(suffix[n], plain_suf[n]) for n in suffix)
+    ok = err < 1.5e-2 and slot_ok
+    log(f"[kernels] V1 decode_attention U={U} R={R} P={P} M={M} step={step}: "
+        f"{err:.3g} of the largest output (limit 1.5e-2), slot bytes "
+        f"{'equal' if slot_ok else 'DIFFER'} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("decode_attention disagrees with its plain version")
+    moved = 2 * (2 * q.numel() + 2 * k.numel() + 2 * U * H * P * D
+                 + 2 * U * H * R * step * D)
+    flops = 4 * B * G * H * (P + step) * D
+    b_ms, b_by = bound_ms(moved, flops, "bfloat16")
+    qp = q.view(U, R, G * H, D).transpose(1, 2)             # [U, 32, R, D]
+    qs = q.view(B, G * H, 1, D)
+    ks, vs = (x[:, :, :, :step].permute(0, 2, 1, 3, 4).reshape(B, H, step, D)
+              .contiguous() for x in (suffix["k"], suffix["v"]))
+
+    def library():
+        F.scaled_dot_product_attention(qp, prefix["k"], prefix["v"],
+                                       enable_gqa=True)
+        F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
+
+    out = {"source": "clearconverse_tpu_torch/csrc/decode_attention.cu",
+           "shape": {"U": U, "R": R, "P": P, "M": M, "step": step},
+           "rel_err": err,
+           "ms": graph_ms(lambda: run(da.decode_attention, suffix), 50),
+           "plain_ms": graph_ms(lambda: run(da.decode_attention_plain,
+                                            plain_suf)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": graph_ms(library, 50)}
+    log(f"[kernels] V1 decode_attention: kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, library (SDPA) {out['library_ms']:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{100 * b_ms / out['ms']:.1f}% of bound")
+    return out
 
 
 # The separator kernels' call shape in small.en-overlap: one separation
@@ -2593,11 +2717,11 @@ def phase_mesh_quantize(bundle, host_batch):
 # ------------------------------------------- decode graphs (phase 18)
 
 # The phases whose card decodes take the default route (phases 3-11, 13,
-# 16-19); the train phases decode nothing and the bench runs elsewhere.
+# 16-22); the train phases decode nothing and the bench runs elsewhere.
 GRAPH_PHASES = ("slice", "main", "engine", "engine_parity", "overlap",
                 "overlap_parity", "serve", "rehearsal", "int4", "parity",
                 "beam_language_native", "mesh_quantize", "decode_graphs",
-                "beam_graphs", "bf16_contract", "warmup")
+                "beam_graphs", "bf16_contract", "warmup", "voxtral")
 
 GRAPH_BATCHES = (8, 32, 128)
 GRAPH_TOKENS = 96       # the bench hot path's decode length
@@ -3035,6 +3159,134 @@ def phase_bf16_contract(model_dir: str, bundle, host_batch, graphs_res):
     if not all(identity.values()):
         raise SystemExit(f"bf16: graph and eager differ at B=8: {identity}")
     return res
+
+
+# ------------------------------------------- Voxtral's loop step (phase 22)
+
+def _step_split(step_fn):
+    """One eager call of ``step_fn`` under torch.profiler: the kernel time
+    of the whole step and of the kernels that ran inside the device-side
+    spans of the ranges ``vx.attention`` (each layer's attention block), in
+    ms. By time on the device, since V1's launches go through ctypes and no
+    PyTorch op owns them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e.time_range for e in dev if e.name == "vx.attention"]
+    kernels = [e.time_range for e in dev if e.name != "vx.attention"]
+    inside = [k for k in kernels
+              if any(s.start <= k.start < s.end for s in spans)]
+    total = sum(k.elapsed_us() for k in kernels) / 1e3
+    attn = sum(k.elapsed_us() for k in inside) / 1e3
+    return {"step_kernel_ms": total, "attention_ms": attn,
+            "rest_ms": total - attn, "kernels": len(kernels),
+            "attention_kernels": len(inside), "spans": len(spans)}
+
+
+def phase_voxtral():
+    """Phase 22 (module docstring)."""
+    from clearconverse_tpu_torch.audio.mel import log_mel_auto
+    from clearconverse_tpu_torch.models import decode_graph, decoding
+    from clearconverse_tpu_torch.models import voxtral as vx
+    from clearconverse_tpu_torch.models.tokenizer import (
+        TekkenByteTokenizer, TekkenSpecials)
+    from clearconverse_tpu_torch.ops import decode_attention as da
+
+    dims = vx.VoxtralDims()
+    tok = TekkenByteTokenizer(TekkenSpecials())
+    head, tail = tok.specials.prompt(tok.language_ids("en"))
+    U, R, M, step = VX_ROWS, VX_REPLICAS, VX_SLOTS, VX_STEP
+    B, H, dh = U * R, dims.n_kv_head, dims.head_dim
+    t0 = time.perf_counter()
+    model = vx.init_voxtral(dims, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0}
+    audio = noise_rows(U, 22)
+    with torch.inference_mode():
+        mel = log_mel_auto(audio, n_mels=dims.n_mels)
+        x = vx.prompt_embeddings(model, vx.encode_audio(model, mel), head,
+                                 tail)
+        P = x.shape[1]
+        arena = decode_graph._PrefixArena(
+            decode_graph.PrefixLayout(dims.n_layer, H, dh, torch.bfloat16),
+            U * H * dh * P, U * H * R * dh * M, torch.device("cuda"))
+        prefix, suffix = arena.views(U, R, P, M)
+        vx.prefix_prefill(model, x, out=prefix)
+        # Slots below step - 1: prompt positions' K/V, each replica its own.
+        for pre, suf in zip(prefix, suffix):
+            for name in ("k", "v"):
+                suf[name][:, :, :, :step - 1] = torch.stack(
+                    [pre[name][:, :, r * 7:r * 7 + step - 1]
+                     for r in range(R)], dim=2)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    prev = torch.randint(1000, dims.n_vocab, (B,), generator=g,
+                         device="cuda")
+    st = torch.tensor(step, device="cuda")
+    kslot = torch.arange(M, device="cuda")
+    impls = {"plain": da.decode_attention_plain, "kernel": da.decode_attention}
+
+    def step_fn(impl):
+        def ranged(*a):
+            with torch.profiler.record_function("vx.attention"):
+                return impl(*a)
+        ranged.launches = 0      # step_forward reads the wrapper's count
+
+        def run():
+            vx.decode_attention = ranged
+            try:
+                with torch.inference_mode():
+                    return vx.step_forward(model, prev, st, prefix, suffix,
+                                           kslot, P)
+            finally:
+                vx.decode_attention = da.decode_attention
+        return run
+
+    logits = {}
+    for name, impl in impls.items():
+        run = step_fn(impl)
+        logits[name] = run().float()
+        split = _step_split(run)
+        split["graph_step_ms"] = graph_ms(run)
+        out[name] = split
+        log(f"[voxtral] step at U={U} R={R} P={P} step={step} ({name}): "
+            f"kernel time {split['step_kernel_ms']:.3f} ms of which attention "
+            f"{split['attention_ms']:.3f} ms and the rest "
+            f"{split['rest_ms']:.3f} ms; {split['kernels']} kernels, "
+            f"{split['attention_kernels']} of them in {split['spans']} "
+            f"attention spans; as a CUDA graph {split['graph_step_ms']:.3f} "
+            f"ms")
+    gap = float((torch.log_softmax(logits["kernel"], -1)
+                 - torch.log_softmax(logits["plain"], -1)).abs().max())
+    top1 = float((logits["kernel"].argmax(-1)
+                  == logits["plain"].argmax(-1)).float().mean())
+    out["step_logprob_gap"], out["step_top1_agree"] = gap, top1
+    log(f"[voxtral] V1 step against the plain step: log-probability gap "
+        f"{gap:.4f} nats, top-1 agreement {top1:.3f}")
+    if not gap < VX_STEP_GAP:
+        raise SystemExit(f"voxtral: V1's step logits {gap} nats from the "
+                         f"plain step's (limit {VX_STEP_GAP})")
+    del arena, prefix, suffix, x, mel
+    torch.cuda.empty_cache()
+
+    opts = decoding.DecodeOptions(
+        max_tokens=16, temperature=0.1, eot=tok.specials.eos,
+        suppress_blank=False, suppress_tokens=tok.specials.control_ids(),
+        compute_dtype=torch.bfloat16, replicas=R)
+    dec = decoding.voxtral_decode_from_audio(
+        model, noise_rows(8, 23), head, tail, opts,
+        torch.Generator(device="cuda").manual_seed(1))
+    out["decode_counts"] = dec["counts"]
+    log(f"[voxtral] decode of 8 rows x best_of {R}, 16 tokens: "
+        f"fused_attn_layers {dec['counts']['fused_attn_layers']} (of "
+        f"{dims.n_layer}), counts {dec['counts']}")
+    if dec["counts"]["fused_attn_layers"] != dims.n_layer:
+        raise SystemExit("voxtral: the step's layers did not run V1")
+    return out
 
 
 # ------------------------------------------- the serving warm-up (phase 21)
@@ -3677,6 +3929,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         warm = timed("warmup", phase_warmup,
                      os.path.join(rehearsal_dir, "parity_models"))
+        voxtral = timed("voxtral", phase_voxtral)
     finally:
         shutil.rmtree(seeded_dir, ignore_errors=True)
         shutil.rmtree(rehearsal_dir, ignore_errors=True)
@@ -3726,7 +3979,8 @@ def main() -> int:
               "train_parity": train_parity, "beam_language_native": beam,
               "mesh_quantize": mesh, "decode_graphs": graphs,
               "beam_graphs": beam_graphs, "bf16_contract": bf16,
-              "warmup": warm, "graph_counts": graph_counts, "phase_s": phase_s,
+              "warmup": warm, "voxtral": voxtral,
+              "graph_counts": graph_counts, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as fh:

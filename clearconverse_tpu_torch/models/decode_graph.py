@@ -200,14 +200,16 @@ class _PrefixArena:
             n <= have for n, have in zip(dims, self.dims))
 
     def views(self, U: int, R: int, P: int, M: int):
-        """(prefix ``{"kt": [U, H, dh, P], "v": [U, H, P, dh]}``, suffix
-        ``{"kt": [U, H, R, dh, M], "v": [U, H, R, M, dh]}``) per layer."""
+        """(prefix ``{"k", "v"}`` each [U, H, P, dh], suffix ``{"k", "v"}``
+        each [U, H, R, M, dh]) per layer: K position-major, as V, the
+        layout the step's kernel reads (``ops/decode_attention.py``)."""
         H, dh = self.layout.kv_heads, self.layout.head_dim
         n_p, n_s = U * H * dh * P, U * H * R * dh * M
-        prefix = [{"kt": b["pk"][:n_p].view(U, H, dh, P),
-                   "v": b["pv"][:n_p].view(U, H, P, dh)} for b in self.bufs]
-        suffix = [{"kt": b["sk"][:n_s].view(U, H, R, dh, M),
-                   "v": b["sv"][:n_s].view(U, H, R, M, dh)}
+        prefix = [{name: b[buf][:n_p].view(U, H, P, dh)
+                   for name, buf in (("k", "pk"), ("v", "pv"))}
+                  for b in self.bufs]
+        suffix = [{name: b[buf][:n_s].view(U, H, R, M, dh)
+                   for name, buf in (("k", "sk"), ("v", "sv"))}
                   for b in self.bufs]
         return prefix, suffix
 

@@ -934,7 +934,10 @@ def beam_decode(
 class _VoxtralInputs:
     """What a Voxtral loop step reads and never writes (``_LoopInputs``'
     counterpart): the unique rows' prefix K/V, the prompt's slots, the
-    suffix slot index, the suppression mask, t and the generator."""
+    suffix slot index, the suppression mask, t and the generator; and
+    ``counts``, which the step fills when it runs eagerly or is captured
+    (``voxtral.step_forward``): a graph's replays keep the value of its
+    capture, since the key's inputs keep this dict."""
 
     model: Optional[torch.nn.Module]
     opts: DecodeOptions
@@ -944,6 +947,7 @@ class _VoxtralInputs:
     suppress: torch.Tensor     # [V] bool (_suppress_mask)
     temperature: torch.Tensor  # 0-d f32
     generator: Optional[torch.Generator]
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def _voxtral_step(s: _LoopState, c: _VoxtralInputs) -> None:
@@ -956,7 +960,7 @@ def _voxtral_step(s: _LoopState, c: _VoxtralInputs) -> None:
     step = s.step
     live = ~s.finished.all() & (step < opts.max_tokens)
     logits = step_forward(c.model, s.prev, step, c.prefix, s.kv, c.kslot,
-                          c.P, opts.compute_dtype)
+                          c.P, opts.compute_dtype, c.counts)
     lg = logits.masked_fill(c.suppress, _NEG_INF)
     logp = F.log_softmax(lg, dim=-1)
     pick = _pick(lg, opts, c.generator, c.temperature)
@@ -978,17 +982,21 @@ def _voxtral_steps(s: _LoopState, c: _VoxtralInputs) -> None:
         _voxtral_step(s, c)
 
 
-def voxtral_counts(U: int, P: int, R: int, steps: int) -> Dict[str, int]:
+def voxtral_counts(U: int, P: int, R: int, steps: int,
+                   fused_attn_layers: int = 0) -> Dict[str, int]:
     """What a Voxtral decode call ran: ``prefix_rows`` (unique rows
     prefilled), ``prefix_positions`` (their positions), ``rows``, ``steps``
     (loop steps), ``suffix_positions`` (suffix positions attended, summed
     over rows and steps), ``prefix_copies`` (prefix K/V copies held per
-    unique row) and ``prefix_reads`` (prefix positions read by the loop,
-    summed over its steps)."""
+    unique row), ``prefix_reads`` (prefix positions read by the loop,
+    summed over its steps) and ``fused_attn_layers`` (the layers of its
+    step whose attention ran the kernel, ``ops/decode_attention.py``: every
+    layer on the card, 0 on the CPU)."""
     return {"prefix_rows": U, "prefix_positions": U * P, "rows": U * R,
             "steps": steps,
             "suffix_positions": U * R * steps * (steps + 1) // 2,
-            "prefix_copies": 1, "prefix_reads": steps * U * P}
+            "prefix_copies": 1, "prefix_reads": steps * U * P,
+            "fused_attn_layers": fused_attn_layers}
 
 
 @torch.inference_mode()
@@ -1076,11 +1084,12 @@ def voxtral_decode_from_audio(
                     -(-(mt - 1) // decode_graph.K), timer) if mt > 1 else 0
             tokens, slp = s.tokens[:, :mt].clone(), s.slp.clone()
 
-    counts = voxtral_counts(U, P, R, loop_steps)
+    counts = voxtral_counts(U, P, R, loop_steps,
+                            c.counts.get("fused_attn_layers", 0))
     if timer is not None:
         timer.count("token_loop_steps", loop_steps)
         for name in ("prefix_rows", "prefix_positions", "rows",
-                     "suffix_positions", "prefix_reads"):
+                     "suffix_positions", "prefix_reads", "fused_attn_layers"):
             timer.count(name, counts[name])
     out = _finalize_decode(tokens, slp, torch.zeros(B, device=dev), opts)
     out["steps"] = loop_steps + 1

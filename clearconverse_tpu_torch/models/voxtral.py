@@ -31,11 +31,12 @@ bf16. The encoder keeps Whisper's rules (``whisper_encode``).
 
 best_of's replicas share one prompt, so the prompt is prefilled once per
 unique row (``prefix_prefill``) and its K/V held once; a loop step
-(``step_forward``) folds a row's R replicas into the query axis against that
-prefix (each prefix read once per step for all R) and attends to each
-replica's own generated suffix. K is held head-major with the head width
-before the positions (``[rows, 8, 128, P]``), as Whisper's decode holds
-it, so neither product copies a transposed cache.
+(``step_forward``) attends each replica to that prefix (each prefix read
+once per step for all R) and to its own generated suffix. On the card a
+layer's step attention is one hand-written kernel
+(``ops/decode_attention.py``), which reads K position-major (``[rows, 8, P,
+128]``, as V); on the CPU its plain version runs the products on K's
+head-major storage (``[rows, 8, 128, P]``, as Whisper's decode holds it).
 
 Departures from the published model (each also under the configuration's
 ``assumed``):
@@ -63,6 +64,7 @@ from torch import nn
 
 from clearconverse_tpu_torch.models.whisper import (
     WhisperDims, _Encoder, matmul_f32, sinusoids, whisper_encode)
+from clearconverse_tpu_torch.ops.decode_attention import decode_attention
 
 # The published name ``Config.whisper_model_size`` selects it by.
 NAME = "voxtral-mini-3b-2507"
@@ -330,10 +332,11 @@ def prefix_prefill(model: Voxtral, x: torch.Tensor,
     embeddings, ``prompt_embeddings``) through every layer with causal
     self-attention. Returns (per-layer K/V ``{"k", "v"}`` each [U, n_kv,
     P, head_dim] in the compute dtype, the last position's f32 logits [U,
-    vocab]). ``out``, when given (one ``{"kt": [U, n_kv, head_dim, P],
-    "v"}`` a layer: a decode graph's prefix buffers), receives K/V with
-    ``copy_``; K is held head-major either way, and ``"k"`` is its
-    transposed view."""
+    vocab]). ``out``, when given (one ``{"k", "v"}`` a layer, each [U,
+    n_kv, P, head_dim]: a decode graph's prefix buffers, position-major as
+    the step's kernel reads them), receives K/V with ``copy_`` and is
+    returned; without it ``"k"`` is the transposed view of the head-major K
+    that the products read."""
     dims = model.dims
     U, P, _ = x.shape
     dev = x.device
@@ -352,15 +355,16 @@ def prefix_prefill(model: Voxtral, x: torch.Tensor,
                        cos, sin)
         k = apply_rope(_linear(h, layer.attn.k).view(U, P, H, dh), cos, sin)
         v = _linear(h, layer.attn.v).view(U, P, H, dh)
-        kt = k.permute(0, 2, 3, 1)                        # [U, H, dh, P]
+        kt = k.permute(0, 2, 3, 1).contiguous()           # [U, H, dh, P]
         vh = v.transpose(1, 2)                            # [U, H, P, dh]
         if out is None:
-            kt, vh = kt.contiguous(), vh.contiguous()
+            vh = vh.contiguous()
+            kv.append({"k": kt.transpose(2, 3), "v": vh})
         else:
-            out[i]["kt"].copy_(kt)
+            out[i]["k"].copy_(k.transpose(1, 2))
             out[i]["v"].copy_(vh)
-            kt, vh = out[i]["kt"], out[i]["v"]
-        kv.append({"k": kt.transpose(2, 3), "v": vh, "kt": kt})
+            vh = out[i]["v"]
+            kv.append(out[i])
         # [U, P, H, g, dh] → [U, H, g * P, dh]: a head's group rows stacked.
         qh = _split_q(q, dims).permute(0, 2, 3, 1, 4).reshape(U, H, g * P, dh)
         logits = matmul_f32(qh, kt) * scale + causal
@@ -370,8 +374,7 @@ def prefix_prefill(model: Voxtral, x: torch.Tensor,
         x = x + _linear(o, layer.attn.o).float()
         h = rms_norm(x, layer.mlp_norm, dims.rms_eps).to(cdt)
         x = x + _mlp(h, layer.mlp).float()
-    return ([{"k": e["k"], "v": e["v"]} for e in kv],
-            _logits(model, x[:, -1], cdt))
+    return kv, _logits(model, x[:, -1], cdt)
 
 
 # ------------------------------------------------------------------ step
@@ -379,66 +382,50 @@ def prefix_prefill(model: Voxtral, x: torch.Tensor,
 def step_forward(model: Voxtral, prev: torch.Tensor, step: torch.Tensor,
                  prefix: List[Dict[str, torch.Tensor]],
                  suffix: List[Dict[str, torch.Tensor]], kslot: torch.Tensor,
-                 P: int, cdt: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                 P: int, cdt: torch.dtype = torch.bfloat16,
+                 counts: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """One token for each of the B = U·R rows (R replicas of each unique
     row consecutive): ``prev`` [B], the token sampled at loop step
     ``step`` - 1 (a 0-d device tensor), sits at position P + step - 1 and
     its K/V land in suffix slot step - 1.
 
     ``prefix`` holds the unique rows' prompt K/V once (``{"k": [U, n_kv,
-    P, dh], "v": ...}`` with ``"k"`` a view of the head-major ``[U, n_kv,
-    dh, P]``); ``suffix`` each row's own cache, ``{"kt": [U, n_kv, R, dh,
-    M], "v": [U, n_kv, R, M, dh]}``, written in place. The R replicas and a
-    K/V head's query group fold into one query axis against the prefix, so
-    a step reads each prefix once for all replicas. ``kslot`` [M] is the
-    slot index. Returns f32 logits [B, vocab]. Reads nothing from the host,
-    so the decode's token loop captures it into a CUDA graph."""
+    P, dh], "v": ...}``); ``suffix`` each row's own cache, ``{"k": [U,
+    n_kv, R, M, dh], "v": ...}``, written in place. Each layer's attention
+    is ``ops/decode_attention.decode_attention``: on the card one kernel
+    that reads each prefix once for all replicas and each suffix up to
+    ``step`` only; on the CPU its plain version, which folds the R replicas
+    and a K/V head's query group into one query axis against the prefix.
+    ``kslot`` [M] is the slot index. ``counts``, when given, receives
+    ``fused_attn_layers``: the layers whose attention ran the kernel.
+    Returns f32 logits [B, vocab]. Reads nothing from the host, so the
+    decode's token loop captures it into a CUDA graph."""
     dims = model.dims
-    B = prev.shape[0]
-    H, dh = dims.n_kv_head, dims.head_dim
-    g = dims.n_head // H
-    U = prefix[0]["v"].shape[0]
-    R = B // U
-    M = kslot.shape[0]
     cos, sin = rope_tables(dims, step + (P - 1))          # [dh]
-    slot = (step - 1).reshape(1)
-    smask = torch.where(kslot >= step, _NEG_INF, 0.0)     # [M]
-    scale = dh ** -0.5
+    launches = decode_attention.launches
     x = model.decoder.tok[prev].float()
     for layer, pre, suf in zip(model.decoder.layers, prefix, suffix):
         h = rms_norm(x, layer.attn_norm, dims.rms_eps).to(cdt)
-        q = apply_rope(_linear(h, layer.attn.q).view(B, dims.n_head, dh),
-                       cos, sin)
-        k = apply_rope(_linear(h, layer.attn.k).view(B, H, dh), cos, sin)
-        v = _linear(h, layer.attn.v).view(B, H, dh)
-        # [U, R, H, dh] → [U, H, R, dh, 1] and [U, H, R, 1, dh].
-        k = k.view(U, R, H, dh).permute(0, 2, 1, 3)
-        v = v.view(U, R, H, dh).permute(0, 2, 1, 3)
-        suf["kt"].index_copy_(4, slot, k[..., None].to(suf["kt"].dtype))
-        suf["v"].index_copy_(3, slot, v[..., None, :].to(suf["v"].dtype))
-        # [U, R, H, g, dh] → [U, H, R, g, dh]: replicas and groups folded.
-        qf = _split_q(q, dims).view(U, R, H, g, dh).permute(0, 2, 1, 3, 4) \
-            .contiguous()
-        sp = matmul_f32(qf.view(U, H, R * g, dh), pre["k"].transpose(2, 3))
-        ss = matmul_f32(qf, suf["kt"]) + smask            # [U, H, R, g, M]
-        logits = torch.cat([sp.view(U, H, R, g, -1), ss], dim=-1) * scale
-        w = torch.softmax(logits, dim=-1).to(cdt)
-        wp = w[..., :-M].reshape(U, H, R * g, -1)
-        o = (matmul_f32(wp, pre["v"]).view(U, H, R, g, dh)
-             + matmul_f32(w[..., -M:].contiguous(), suf["v"]))
-        o = o.to(cdt).permute(0, 2, 1, 3, 4).reshape(B, dims.n_head * dh)
+        o = decode_attention(_linear(h, layer.attn.q), _linear(h, layer.attn.k),
+                             _linear(h, layer.attn.v), cos, sin, step, pre,
+                             suf, kslot)
         x = x + _linear(o, layer.attn.o).float()
         h = rms_norm(x, layer.mlp_norm, dims.rms_eps).to(cdt)
         x = x + _mlp(h, layer.mlp).float()
+    if counts is not None:
+        counts["fused_attn_layers"] = decode_attention.launches - launches
     return _logits(model, x, cdt)
 
 
 def suffix_cache(dims: VoxtralDims, U: int, R: int, M: int, dtype,
                  device) -> List[Dict[str, torch.Tensor]]:
-    """Zeroed per-layer suffix caches ``{"kt": [U, n_kv, R, dh, M], "v":
-    [U, n_kv, R, M, dh]}`` (the eager route's; a decode graph's live in its
-    arena)."""
+    """Zeroed per-layer suffix caches ``{"k", "v"}``, each [U, n_kv, R, M,
+    dh], for the eager (CPU) route: K's storage is head-major (``"k"`` a
+    transposed view of [U, n_kv, R, dh, M]), as the plain version's
+    products read it. The card's live in a decode graph's arena,
+    position-major (``decode_graph._PrefixArena``)."""
     H, dh = dims.n_kv_head, dims.head_dim
-    return [{"kt": torch.zeros((U, H, R, dh, M), dtype=dtype, device=device),
+    return [{"k": torch.zeros((U, H, R, dh, M), dtype=dtype,
+                              device=device).transpose(3, 4),
              "v": torch.zeros((U, H, R, M, dh), dtype=dtype, device=device)}
             for _ in range(dims.n_layer)]

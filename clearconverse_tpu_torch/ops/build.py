@@ -24,7 +24,8 @@ from typing import Dict, Sequence, Tuple
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("logmel", "encoder_attention", "sb_attention", "sb_ffn")
+KERNELS = ("logmel", "encoder_attention", "sb_attention", "sb_ffn",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -231,7 +231,8 @@ class ModelBundle:
         # Voxtral's decode counters (decoding.voxtral_counts), summed over
         # the decode calls since the engine last cleared them (once a pass):
         # prefix_rows, prefix_positions, rows, steps, suffix_positions,
-        # prefix_reads; prefix_copies, the most of any call.
+        # prefix_reads, fused_attn_layers (n_layer a call on the card);
+        # prefix_copies, the most of any call.
         self.last_decode: dict = {}
         # The (data, model) mesh, built at first use from the TorchConfig
         # axes; the serving controller on rank 0 of a mesh.

@@ -1226,6 +1226,7 @@ def test_voxtral_transcribe_batch_matches_the_reference_on_card(
     assert decode_graph.COUNTS["replays"] > replays
     assert b.last_decode["prefix_copies"] == 1
     assert b.last_decode["rows"] == 5 * b.last_decode["prefix_rows"] == 40
+    assert b.last_decode["fused_attn_layers"] == dims.n_layer
     (args, kwargs, out), = calls
     mt = 32
     pk = out["packed"].cpu()
@@ -1256,3 +1257,185 @@ def test_voxtral_transcribe_batch_matches_the_reference_on_card(
     print(f"voxtral card: served-sum gap {gap:.4f} nats (fp8 {fp8:.4f}), "
           f"sums {slp.min():.1f}..{slp.max():.1f}")
     assert gap < VOXTRAL_GAP < fp8, (gap, fp8)
+
+
+# Voxtral's loop-step attention kernel (ops/decode_attention.py) at the
+# voxtral-mini-batch cell's shape: 32 unique rows x best_of 5, the 387
+# prompt positions, M = 128 tokens + decode_graph.K suffix slots. Kernel
+# against the plain version, as a share of the output's largest magnitude:
+# the two round the softmax weights to bf16 at different points (the plain
+# version its normalised weights, the kernel its unnormalised ones, each
+# within 2^-9 relative), sum in other orders, and round the output once to
+# bf16 (2^-8 relative), so they may part by a few bf16 ulps of the output's
+# scale; the CPU emulation of the kernel's tiling reads up to 6.8e-3
+# (tests/test_torch_decode_attention.py).
+VX_ATTN_TOL = 1.5e-2
+VX_CELL = (32, 5, 387, 136)     # U, R, P, M
+
+
+def _vx_attention_case(dev, U, R, P, M, step, seed, H=8):
+    """One layer's step inputs on the card: q, k, v ~ N(0, 1) in bf16, the
+    prefix's K/V and the suffix's slots below step - 1 ~ N(0, 1), the rest
+    of the suffix zero; K position-major, as the decode arena holds it."""
+    from clearconverse_tpu_torch.models import voxtral as vx
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    D = 128
+    cos, sin = vx.rope_tables(vx.VoxtralDims(),
+                              torch.tensor(P + step - 1, device=dev))
+    suffix = {"k": t(U, H, R, M, D), "v": t(U, H, R, M, D)}
+    for x in suffix.values():
+        x[:, :, :, step - 1:] = 0
+    return dict(q=t(U * R, 4 * H * D), k=t(U * R, H * D), v=t(U * R, H * D),
+                cos=cos, sin=sin, step=torch.tensor(step, device=dev),
+                prefix={"k": t(U, H, P, D), "v": t(U, H, P, D)}, suffix=suffix,
+                kslot=torch.arange(M, device=dev))
+
+
+def _vx_run(fn, c, suffix):
+    return fn(c["q"], c["k"], c["v"], c["cos"], c["sin"], c["step"],
+              c["prefix"], suffix, c["kslot"])
+
+
+def _vx_suffix_copy(c):
+    return {n: x.clone() for n, x in c["suffix"].items()}
+
+
+@pytest.mark.parametrize("R,step", [(5, 1), (5, 8), (5, 64), (5, 127),
+                                    (5, 128), (1, 64)])
+def test_decode_attention_matches_plain_at_the_cell_shape(cuda, R, step):
+    """Kernel against the plain version at the cell's shape (and at R = 1,
+    greedy): output within VX_ATTN_TOL, the suffix slot written with the
+    plain version's index_copy_ bytes and nothing else of the cache
+    touched."""
+    from clearconverse_tpu_torch.ops import decode_attention as da
+    U, _, P, M = VX_CELL
+    c = _vx_attention_case(cuda, U, R, P, M, step, seed=step + R)
+    before = _vx_suffix_copy(c)
+    kern, plain = _vx_suffix_copy(c), _vx_suffix_copy(c)
+    launches = da.decode_attention.launches
+    got = _vx_run(da.decode_attention, c, kern)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == launches + 1
+    want = _vx_run(da.decode_attention_plain, c, plain)
+    assert got.shape == want.shape == (U * R, 4096) and got.dtype == want.dtype
+    assert bool(torch.isfinite(got.float()).all())
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    print(f"decode_attention R={R} step={step}: {err:.3g} of the largest "
+          f"output")
+    assert err < VX_ATTN_TOL, err
+    for name in ("k", "v"):
+        assert torch.equal(kern[name].view(torch.int16),
+                           plain[name].view(torch.int16))
+        changed = (kern[name] != before[name]).flatten(4).any(-1)
+        assert not bool(changed[..., torch.arange(M, device=cuda)
+                                != step - 1].any())
+
+
+def test_decode_attention_never_reads_unwritten_slots(cuda):
+    """Suffix slots at or past step filled with NaN: the output is finite
+    and bit for bit the one over a clean cache."""
+    from clearconverse_tpu_torch.ops import decode_attention as da
+    U, R, P, M = VX_CELL
+    step = 40
+    c = _vx_attention_case(cuda, U, R, P, M, step, seed=3)
+    clean = _vx_run(da.decode_attention, c, _vx_suffix_copy(c))
+    dirty_suffix = _vx_suffix_copy(c)
+    for x in dirty_suffix.values():
+        x[:, :, :, step:] = float("nan")
+    dirty = _vx_run(da.decode_attention, c, dirty_suffix)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dirty.float()).all())
+    assert torch.equal(dirty.view(torch.int16), clean.view(torch.int16))
+
+
+def test_decode_attention_graph_follows_its_step(cuda):
+    """Eight steps captured in one CUDA graph, RoPE's tables from the
+    device step and the step advanced inside it, replayed twice from step
+    1: every step's output and the suffix cache bit for bit those of the
+    same sixteen steps run eagerly."""
+    from clearconverse_tpu_torch.models import voxtral as vx
+    from clearconverse_tpu_torch.ops import decode_attention as da
+    U, R, P, M = 4, 5, 387, 24
+    c = _vx_attention_case(cuda, U, R, P, M, 1, seed=11)
+    step, suffix = c["step"], c["suffix"]
+    outs = torch.empty((8, U * R, 4096), dtype=torch.bfloat16, device=cuda)
+    dims = vx.VoxtralDims()
+
+    def chunk():
+        for i in range(8):
+            cos, sin = vx.rope_tables(dims, step + (P - 1))
+            outs[i].copy_(da.decode_attention(
+                c["q"], c["k"], c["v"], cos, sin, step, c["prefix"], suffix,
+                c["kslot"]))
+            step.add_(1)
+
+    def reset():
+        step.fill_(1)
+        for x in suffix.values():
+            x.zero_()
+
+    reset()
+    eager = []
+    for _ in range(2):
+        chunk()
+        eager.append(outs.clone())
+    eager_suffix = {n: x.clone() for n, x in suffix.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        reset()
+        chunk()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        chunk()
+    reset()
+    for want in eager:
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(outs.view(torch.int16), want.view(torch.int16))
+    assert int(step) == 17
+    for n in suffix:
+        assert torch.equal(suffix[n].view(torch.int16),
+                           eager_suffix[n].view(torch.int16))
+
+
+def test_voxtral_decode_runs_the_kernel_in_every_layer(cuda):
+    """A 2-layer Voxtral with the published attention (32 query and 8 K/V
+    heads of 128) on the graph route: ``fused_attn_layers`` reads 2 for the
+    call that captures and for the next, which only replays (the wrapper's
+    launch count does not move then), and the timer counts it."""
+    from clearconverse_tpu_torch.models import decoding as dec
+    from clearconverse_tpu_torch.models import voxtral as vx
+    from clearconverse_tpu_torch.models.tokenizer import (
+        TekkenByteTokenizer, TekkenSpecials)
+    from clearconverse_tpu_torch.ops import decode_attention as da
+    from clearconverse_tpu_torch.utils.tracing import StageTimer
+    dims = vx.VoxtralDims(n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+                          d_model=256, n_layer=2, d_ffn=512, n_vocab=1300)
+    tok = TekkenByteTokenizer(TekkenSpecials(n_vocab=dims.n_vocab))
+    head, tail = tok.specials.prompt(tok.language_ids("en"))
+    model = vx.init_voxtral(dims, seed=4, device="cuda")
+    opts = dec.DecodeOptions(
+        max_tokens=12, temperature=0.5, eot=tok.specials.eos,
+        suppress_blank=False, suppress_tokens=tok.specials.control_ids(),
+        compute_dtype=torch.bfloat16, replicas=5)
+    audio = _randn((3, 16000), 9, 0.1).cuda()
+    for call in range(2):
+        timer = StageTimer()
+        launches = da.decode_attention.launches
+        out = dec.voxtral_decode_from_audio(
+            model, audio, head, tail, opts,
+            torch.Generator(device="cuda").manual_seed(call), timer=timer)
+        assert out["counts"]["fused_attn_layers"] == dims.n_layer
+        assert timer.counts["fused_attn_layers"] == dims.n_layer
+        assert timer.counts["graph_replays"] > 0
+        if call:
+            assert da.decode_attention.launches == launches
+        else:
+            assert da.decode_attention.launches > launches
